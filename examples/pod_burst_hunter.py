@@ -69,7 +69,7 @@ def main(argv=None):
         max_candidates=16,
         # pod-scale output compaction: two-tier extraction — most detected
         # carriers are narrow, so ship 16 rows at width 64 and only 4 at
-        # the full width (see PERFORMANCE.md: 2x on the 512-slot config)
+        # the full width
         max_extract_width=512,
         extract_budget=4,
         extract_width_split=64,
@@ -121,8 +121,7 @@ def main(argv=None):
     # event-dense deployments: split each wide segment into independent
     # sub-segment automata (cut reconciliation keeps detections exact)
     # and spread the scan chains over pipeline owner devices — the
-    # round-5 churn-capacity transform (PERFORMANCE.md "Round-5: cfg5
-    # churn with the 4-way segment split")
+    # churn-capacity transform
     from fdc_tpu.parallel.pipeline import PipelineChannelizer
 
     cfg_split = cfg.replace(

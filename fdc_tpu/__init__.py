@@ -1,11 +1,11 @@
-"""fdc_tpu — a TPU-native frequency-domain channelizer framework.
+"""fdc_tpu — a JAX frequency-domain channelizer framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of gr-FDC
 (frequency-domain DAMA channelizers and wideband carrier detection,
 reference: gereonsuch/gr-FDC). Instead of a graph of small stateful CPU
 blocks, fdc_tpu is built around a handful of large batched pure functions
 plus an explicit carry pytree, driven by a thin host streaming loop, and
-scales over multi-host TPU meshes by sharding time-blocks and channel
+scales over multi-device meshes by sharding time-blocks and channel
 groups (`fdc_tpu.parallel`).
 
 Public API

@@ -2,7 +2,7 @@
 
 The reference's user entry point is a GRC flowgraph (file source ->
 FrequencyDomainChannelizer -> file/message sinks, reference:
-examples/FDC_example.grc); the TPU-native equivalent is a JSON config
+examples/FDC_example.grc); the equivalent here is a JSON config
 (the declarative schema ``ChannelizerConfig.to_json`` mirrors the GRC
 param schema, reference: grc/FDC_FrequencyDomainChannelizer.xml) driven
 over a raw complex64 capture by the native streaming runtime.
@@ -570,7 +570,7 @@ def _cmd_vcm(args) -> int:
         if len(chunk) < step:
             # zero-pad the tail to the fixed batch shape so the jitted
             # front-end and runner step never recompile for a ragged final
-            # chunk (a TPU recompile costs minutes). Zeros drive in-band
+            # chunk. Zeros drive in-band
             # power to zero, so open bursts see a falling edge and
             # finalize — the same end-of-stream semantics as
             # FrequencyDomainChannelizer.flush().
@@ -796,6 +796,10 @@ def main(argv=None) -> int:
     p_vcm.add_argument("--resume", default="",
                        help="restore state saved by --checkpoint")
     args = ap.parse_args(argv)
+    if args.cmd in ("run", "serve", "vcm"):
+        from fdc_tpu.utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
 
     return {"template": _cmd_template,
             "config": _cmd_config,

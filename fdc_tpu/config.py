@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU channelizer.
+"""Typed configuration for the channelizer.
 
 This module is the "config compiler" of the framework: it normalizes user
 frequencies per frequency mode, rounds block geometry to powers of two, and
@@ -424,7 +424,7 @@ class ChannelizerConfig:
     hier block (reference: python/FrequencyDomainChannelizer.py:46-60 and the
     GRC schema grc/FDC_FrequencyDomainChannelizer.xml).
 
-    TPU-specific knobs (no reference analog) are grouped at the bottom.
+    Device-step knobs (no reference analog) are grouped at the bottom.
     """
 
     blocksize: int = 4096
@@ -456,7 +456,7 @@ class ChannelizerConfig:
     verbose: VerboseMode = VerboseMode.NOLOG
     debug: bool = False
 
-    # --- TPU-specific knobs ------------------------------------------------
+    # --- device-step knobs -------------------------------------------------
     batch_blocks: int = 32  # FFT blocks processed per jitted step
     max_slots: int = 32  # per-segment fixed-capacity dynamic-channel table
     # Per-block detection candidates considered, strongest rising edges
@@ -479,12 +479,11 @@ class ChannelizerConfig:
     # spill into the main bucket.
     extract_width_split: int = 0
     extract_budget_narrow: int = 0
-    # Subband inverse transforms as one real-representation matmul-DFT on
-    # the MXU (Precision.HIGH) instead of the VPU FFT lowering. ON by
-    # default: ~40% faster extraction on TPU (the overlap trim is folded
-    # into the constant DFT matrix so dropped samples are never computed),
-    # rel-RMS vs the FFT path ~1e-5. Set False to force the FFT lowering.
-    use_mxu_fft: bool = True
+    # Forward FFT and subband inverse transforms as real-representation
+    # matmul DFTs (fdc_tpu.ops.fft.DFT_PRECISION) instead of the FFT
+    # lowering. Off by default: on the GPU the FFT lowering (cuFFT) is
+    # both faster and more accurate (PERF.md).
+    use_mxu_fft: bool = False
     # "auto" = C++ emission engine when the native toolchain is available;
     # True forces it (raises if unavailable), False forces pure Python
     native_emission: object = "auto"

@@ -1,6 +1,6 @@
 """Multi-segment activity-detection channelizer.
 
-TPU-native rebuild of activity_detection_channelizer_vcm
+JAX rebuild of activity_detection_channelizer_vcm
 (reference: lib/activity_detection_channelizer_vcm_impl.cc): several
 detection segments sharing one FFT-block stream, one threshold, one
 decimation factor and one window table. The reference fans segments out as

@@ -14,8 +14,8 @@ solves all static geometry and builds ONE jitted step function
 blocks at a time; a thin host driver (``process``) buffers arbitrary-length
 sample arrays into batches and runs the host emission layer.
 
-All host<->device traffic is float32 (complex64 viewed as [..., 2]) because
-some TPU runtimes cannot transfer complex buffers (see fdc_tpu.utils.cplx).
+All host<->device traffic is float32 (complex64 viewed as [..., 2]), the
+layout the host emitters consume (see fdc_tpu.utils.cplx).
 """
 
 from __future__ import annotations
@@ -33,17 +33,10 @@ from fdc_tpu.config import (
     solve_segment,
     split_segment_geometry,
 )
-from fdc_tpu.models.power_activation import (
-    _FLOAT_MIN as _PA_FLOAT_MIN,
-    PowerActivationBank,
-)
+from fdc_tpu.models.power_activation import PowerActivationBank
 from fdc_tpu.models.segment_detection import SegmentDetector, scan_slots_multi
 from fdc_tpu.models.throughput import ThroughputChannelizer
-from fdc_tpu.ops.extract import (
-    extract_bucket,
-    extract_bucket_measured,
-    extract_bucket_phased,
-)
+from fdc_tpu.ops.extract import extract_bucket, extract_bucket_phased
 from fdc_tpu.ops.framing import frame_blocks
 from fdc_tpu.ops.fft import forward_spectrum
 from fdc_tpu.runtime.emission import (
@@ -270,46 +263,6 @@ class FrequencyDomainChannelizer:
                     starts, wins, len(tb.channel_ids), tb, pb
                 )
 
-        # -- fused power measures ------------------------------------------------
-        # One [N, Cm] 0/1 mask matrix holding every detection consumer's
-        # measure columns (burst bands + segment decimation cells). When a
-        # throughput bucket rides the shared fused extraction kernel, the
-        # kernel computes |X|² @ masks from its VMEM-resident spectrum
-        # tiles (extract_bucket_measured) and the separate sq pass +
-        # band_power/cell_power reduces disappear. Columns are zero-padded
-        # to a lane multiple. The matmul's accumulation order differs from
-        # the XLA reduces at ~1e-7 rel; detection thresholds are dB-scale
-        # (>= factor 2 linear), so threshold decisions are stable except
-        # for signals engineered to sit within 1e-7 of a threshold.
-        self._measure_masks = None
-        self._measure_cols = {}
-        if (self.power_bank or self.segments) and self.throughput:
-            cols = []
-            off = 0
-            if self.power_bank:
-                cols.append(self.power_bank.measure_masks)
-                self._measure_cols["powact"] = (
-                    0, self.power_bank.num_channels
-                )
-                off = self.power_bank.num_channels
-            for i, sd in enumerate(self.segments):
-                g = sd.geometry
-                m = np.zeros((cfg.blocksize, g.n_cells), np.float32)
-                for c in range(g.n_cells):
-                    m[
-                        g.start + c * g.decimation:
-                        g.start + (c + 1) * g.decimation,
-                        c,
-                    ] = 1.0
-                cols.append(m)
-                self._measure_cols[f"seg{i}"] = (off, off + g.n_cells)
-                off += g.n_cells
-            mm = np.concatenate(cols, axis=1)
-            pad = (-mm.shape[1]) % 128
-            if pad:
-                mm = np.pad(mm, ((0, 0), (0, pad)))
-            self._measure_masks = mm
-
         # -- streaming state ---------------------------------------------------
         self._carry = None
         self._t0 = 0  # global index of next block
@@ -399,7 +352,7 @@ class FrequencyDomainChannelizer:
         out = {}
         # fused extraction: throughput + burst channels of equal width run
         # as one bucketed slice-window-IFFT over spec_ext. pairs=True:
-        # the MXU matmul-DFT emits the [..., 2] float-pair host layout
+        # the matmul-DFT emits the [..., 2] float-pair host layout
         # directly (interleaved matrix columns) — no complexify/c2f pass
         # ever touches the (large) extraction outputs.
         fused_mats = {}
@@ -417,14 +370,13 @@ class FrequencyDomainChannelizer:
             )
             fused_pa_ext[w] = y[n_tp:]
 
-        powers_fused = None
         if self.throughput:
             # one [C_l, B*out_len, 2] matrix per bucket (the host splits
             # rows; device-side per-channel splitting costs a kernel per
             # channel)
             # t0 is always a whole number of batches (self._t0 += B), so
-            # with B % R == 0 the per-row phase pattern is static and the
-            # fused kernel folds the compensation in (extract_bucket_phased)
+            # with B % R == 0 the per-row phase pattern is static
+            # (extract_bucket_phased)
             fold_phase = cfg.batch_blocks % cfg.relinvovl == 0
             mats = []
             for bucket in self.throughput.buckets:
@@ -432,26 +384,12 @@ class FrequencyDomainChannelizer:
                     mats.append(fused_mats[bucket.width])
                     continue
                 if fold_phase:
-                    if (
-                        self._measure_masks is not None
-                        and powers_fused is None
-                    ):
-                        # ride the detection power measures on the first
-                        # shared-kernel bucket's VMEM spectrum tiles
-                        y, powers_fused = extract_bucket_measured(
-                            spec, bucket.starts, bucket.windows,
-                            cfg.relinvovl, self._measure_masks,
-                            gain=float(bucket.width),
-                            use_mxu=cfg.use_mxu_fft,
-                            keep_from=bucket.width - bucket.out_len,
-                        )
-                    else:
-                        y = extract_bucket_phased(
-                            spec, bucket.starts, bucket.windows,
-                            cfg.relinvovl, gain=float(bucket.width),
-                            use_mxu=cfg.use_mxu_fft,
-                            keep_from=bucket.width - bucket.out_len,
-                        )
+                    y = extract_bucket_phased(
+                        spec, bucket.starts, bucket.windows,
+                        cfg.relinvovl, gain=float(bucket.width),
+                        use_mxu=cfg.use_mxu_fft,
+                        keep_from=bucket.width - bucket.out_len,
+                    )
                     mats.append(
                         self.throughput.finish_bucket(
                             bucket, y, t0, pairs=True, prephased=True
@@ -468,24 +406,16 @@ class FrequencyDomainChannelizer:
                     self.throughput.finish_bucket(bucket, y, t0, pairs=True)
                 )
             out["throughput_buckets"] = mats
-        # one shared |X|^2 pass feeds every detection consumer — unless
-        # the measures already rode the fused extraction kernel
+        # one shared |X|^2 pass feeds every detection consumer
         sq = (
-            jnp.abs(spec) ** 2
-            if (self.power_bank or self.segments) and powers_fused is None
+            jnp.abs(spec) ** 2 if (self.power_bank or self.segments)
             else None
         )
         pa_powers = None
         pa_ext = None
         if self.power_bank:
             pa = self.power_bank
-            if powers_fused is not None:
-                lo, hi = self._measure_cols["powact"]
-                pa_powers = jnp.maximum(
-                    powers_fused[:, lo:hi], _PA_FLOAT_MIN
-                )  # same floor as pa.measure
-            else:
-                pa_powers = pa.measure(spec, sq)
+            pa_powers = pa.measure(spec, sq)
             # burst-channel extraction is flag-INDEPENDENT (all configured
             # channels are extracted every step; the flags only select what
             # the host emits) — it belongs to the static stage
@@ -499,17 +429,7 @@ class FrequencyDomainChannelizer:
                     keep_from=bucket.width - bucket.out_len, pairs=True,
                 )
                 pa_ext[bucket.width] = y
-        seg_powers = []
-        for i, sd in enumerate(self.segments):
-            if powers_fused is not None:
-                lo, hi = self._measure_cols[f"seg{i}"]
-                power = powers_fused[:, lo:hi]
-                if sd.vcm:
-                    # vcm's 1/decimation normalization (see sd.measure)
-                    power = power * jnp.float32(1.0 / sd.geometry.decimation)
-            else:
-                power = sd.measure(spec, sq)
-            seg_powers.append(power)
+        seg_powers = [sd.measure(spec, sq) for sd in self.segments]
         seg_packed = [
             sd._packed_candidates(p)[0]
             for sd, p in zip(self.segments, seg_powers)
@@ -528,11 +448,9 @@ class FrequencyDomainChannelizer:
             carry_io, seg_packed,
             {i: carry_io[f"seg{i}"] for i in self._split_neighbors},
         )
-        # all segments' lifecycle scans fused into one Pallas kernel (one
-        # serial chain instead of len(segments) back-to-back ones), with
-        # the powact hysteresis automaton riding the SAME invocation when
-        # backends allow (ablate28: the scan stage is launch/glue
-        # dominated); falls back to separate scans on the lax.scan backend
+        # all segments' lifecycle scans run as one kernel launch (one
+        # program per segment) on the kernel backend, plus the burst
+        # hysteresis automaton
         if self.power_bank and self.segments:
             seg_scans, pa_result = scan_slots_multi(
                 self.segments, [None] * len(self.segments),
@@ -774,8 +692,7 @@ class FrequencyDomainChannelizer:
         has deactivated, so the emitted EVENT SET does not depend on the
         capture length mod batch_blocks: a capture ending exactly on a
         batch boundary finalizes identically to a ragged one (the
-        historic contract left its bursts open — the sharp edge VERDICT
-        r2 flagged). Silence-only batches contribute nothing to streams,
+        historic contract left its bursts open). Silence-only batches contribute nothing to streams,
         segment_power, or blocks_processed. ``finalize=False`` restores
         the tail-only behavior (what the reference does at flowgraph
         stop). Idempotent: a second flush with nothing buffered and no

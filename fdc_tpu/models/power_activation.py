@@ -1,11 +1,12 @@
 """Power-activated burst channels (fixed positions, hysteresis on/off).
 
-TPU-native rebuild of PowerActivationChannel
+JAX rebuild of PowerActivationChannel
 (reference: lib/PowerActivationChannel_impl.cc): C configured channels share
 
-1. one MXU matmul for all in-band power measurements,
-2. one cheap ``lax.scan`` over the block axis for the per-channel
-   activation state machine (active flag, last-block power, window phase),
+1. one matmul for all in-band power measurements,
+2. one serial walk over the block axis for the per-channel activation
+   state machine (active flag, last-block power, window phase): a kernel
+   on the GPU, a ``lax.scan`` elsewhere,
 3. one width-bucketed batched extraction over [B+1] spectra — row 0 is the
    *previous* batch's last block so a channel activating at the batch start
    can reach back one block, exactly like the reference's history processing
@@ -30,6 +31,7 @@ import numpy as np
 from fdc_tpu.config import solve_power_channel
 from fdc_tpu.ops.detect import band_power
 from fdc_tpu.ops.extract import extract_bucket
+from fdc_tpu.ops.lifecycle_pallas import powact_flags, resolve_backend
 from fdc_tpu.ops.windows import sine_flank_window_bank
 
 __all__ = ["PowerActivationBank"]
@@ -64,7 +66,7 @@ class PowerActivationBank:
         if thresh_db <= 0.0:
             raise ValueError("Threshold is dB and must be > 0")
         if lifecycle_backend not in (
-            "auto", "scan", "assoc", "pallas", "pallas_interpret"
+            "auto", "scan", "pallas", "pallas_interpret"
         ):
             raise ValueError(f"unknown lifecycle_backend {lifecycle_backend!r}")
         self.lifecycle_backend = lifecycle_backend
@@ -135,7 +137,7 @@ class PowerActivationBank:
     # -- device step ----------------------------------------------------------
 
     def measure(self, spectrum: jax.Array, sq: jax.Array = None) -> jax.Array:
-        """[B, N] spectra -> [B, C] floored in-band powers (one MXU matmul,
+        """[B, N] spectra -> [B, C] floored in-band powers (one matmul,
         reference: lib/PowerActivationChannel_impl.cc:286-306). Pass ``sq``
         (= |spectrum|²) when the caller already computed it — the channelizer
         shares one power pass across all detection consumers."""
@@ -156,19 +158,8 @@ class PowerActivationBank:
             [g.delta_phase for g in self.geometry], jnp.int32
         )  # [C]
 
-        backend = self.lifecycle_backend
-        if backend == "auto":
-            # TPU: the chunked Pallas automaton (batch-precomputed ratio
-            # edges + closed-form edge-free chunks) measures 10x the
-            # associative scan alone and -0.055 ms on the full flagship
-            # step (tools/ablate22_tpu.py, 2026-08-19: scan-only
-            # 0.062 -> 0.006 ms, full step 0.630 -> 0.575 ms)
-            backend = "scan" if jax.default_backend() == "cpu" else "pallas"
-        if backend == "assoc":
-            return self._flags_assoc(powers, state, delta)
+        backend = resolve_backend(self.lifecycle_backend)
         if backend in ("pallas", "pallas_interpret"):
-            from fdc_tpu.ops.lifecycle_pallas import powact_flags
-
             return powact_flags(
                 powers,
                 state,
@@ -211,89 +202,6 @@ class PowerActivationBank:
         new_state = {"active": active, "lastpower": lastpower, "phase": phase}
         return new_state, (rise.T, fall.T, processed.T, phase_used.T)
 
-    def _flags_assoc(self, powers: jax.Array, state, delta: jax.Array):
-        """Batched (associative-scan) form of the hysteresis automaton.
-
-        The serial recurrence is shallower than it looks: ``lastpower`` is
-        always the previous block's power regardless of activity
-        (reference: lib/PowerActivationChannel_impl.cc:286-306 updates it
-        unconditionally), so the rise/fall power ratios batch-compute for
-        all B blocks at once, and the active flag evolves by
-        ``active' = active ? ~r_dn : r_up`` — a 2-state automaton whose
-        per-block transition depends only on batched inputs. Function
-        composition of such transitions is associative, so the whole
-        B-long chain collapses to ``associative_scan`` (log-depth, fully
-        vectorized over channels) instead of a 512-step serial chain. The
-        window phase similarly reduces to cumulative processed-block
-        counts anchored at the most recent activation. Bit-exact against
-        the ``lax.scan`` path (same float expressions, same order).
-        """
-        r = self.relinvovl
-        thr = jnp.float32(self.thresh)
-        c = powers.shape[1]
-        lastp = jnp.concatenate(
-            [state["lastpower"][None, :], powers[:-1]], axis=0
-        )  # [B, C]: lastpower entering each block
-        r_up = powers / lastp >= thr
-        r_dn = lastp / powers >= thr
-
-        # active-flag automaton: f_i(0) = r_up[i], f_i(1) = ~r_dn[i];
-        # compose(left-then-right) keeps the pair (F(0), F(1))
-        def compose(left, right):
-            l0, l1 = left
-            r0, r1 = right
-            return jnp.where(l0, r1, r0), jnp.where(l1, r1, r0)
-
-        s0, s1 = jax.lax.associative_scan(compose, (r_up, ~r_dn), axis=0)
-        a0 = state["active"][None, :]
-        act_after = jnp.where(a0, s1, s0)  # [B, C]: active AFTER block i
-        active = jnp.concatenate([a0, act_after[:-1]], axis=0)  # entering
-
-        rise = ~active & r_up
-        fall = active & r_dn
-        processed = rise | active
-
-        # phase: δ at a rise, 2δ after it, +δ per subsequent processed
-        # block. With P[i] = #processed blocks before i, the phase entering
-        # block i is δ·(P[i] − P[j] + 1) mod r for the last rise j < i
-        # (else carried phase0 + δ·P[i]).
-        pi = processed.astype(jnp.int32)
-        cum_inc = jnp.cumsum(pi, axis=0)  # P[i+1]
-        cum_ex = cum_inc - pi  # P[i]
-
-        # (last-rise-exists, P at that rise): "rightmost valid" semigroup
-        def last_valid(left, right):
-            lh, lv = left
-            rh, rv = right
-            return lh | rh, jnp.where(rh, rv, lv)
-
-        h_inc, v_inc = jax.lax.associative_scan(
-            last_valid, (rise, cum_ex), axis=0
-        )
-        zb = jnp.zeros((1, c), bool)
-        zi = jnp.zeros((1, c), jnp.int32)
-        h = jnp.concatenate([zb, h_inc[:-1]], axis=0)
-        v = jnp.concatenate([zi, v_inc[:-1]], axis=0)
-
-        d = delta[None, :]
-        phase0 = state["phase"][None, :]
-        phase = jnp.where(
-            h, (d * (cum_ex - v + 1)) % r, (phase0 + d * cum_ex) % r
-        )
-        phase_used = jnp.where(rise, d, phase)
-
-        phase_fin = jnp.where(
-            h_inc[-1],
-            (delta * (cum_inc[-1] - v_inc[-1] + 1)) % r,
-            (state["phase"] + delta * cum_inc[-1]) % r,
-        )
-        new_state = {
-            "active": act_after[-1],
-            "lastpower": powers[-1],
-            "phase": phase_fin,
-        }
-        return new_state, (rise.T, fall.T, processed.T, phase_used.T)
-
     def extract_rows(self, spec_ext: jax.Array, bucket_tables=None):
         """Width-bucketed extraction of every configured channel over every
         spectrum row. ``bucket_tables`` optionally overrides each bucket's
@@ -304,7 +212,7 @@ class PowerActivationBank:
             if bucket_tables is not None:
                 starts, windows = bucket_tables[i]
             else:
-                starts = bucket.starts  # np: static -> fused Pallas path
+                starts = bucket.starts  # np: static slice starts
                 windows = bucket.windows  # np: folds into the DFT matrix
             # [C_w, rows, out_len], phase-0, unnormalized-IFFT scale
             extract[bucket.width] = extract_bucket(

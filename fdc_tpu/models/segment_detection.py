@@ -1,6 +1,6 @@
 """Dynamic carrier detection + channelization over one frequency segment.
 
-TPU-native rebuild of SegmentDetection (reference: lib/SegmentDetection_impl.cc).
+JAX rebuild of SegmentDetection (reference: lib/SegmentDetection_impl.cc).
 The reference's data-dependent channel lifecycle (spawn / track / retire with
 variable widths, std::deque of heap-allocated channels, per-channel FFTW
 plans and std::threads) becomes:
@@ -40,9 +40,33 @@ from fdc_tpu.ops.detect import (
     match_candidates,
 )
 from fdc_tpu.ops.extract import extract_dynamic
+from fdc_tpu.ops.lifecycle_pallas import (
+    resolve_backend,
+    slot_lifecycle,
+    slot_lifecycle_multi,
+)
 from fdc_tpu.ops.windows import flank_window_bank
 
 __all__ = ["SegmentDetector", "scan_slots_multi"]
+
+
+def _compact_front(groups, keep, width):
+    """Order-preserving compaction of [B, K] columns under ``keep`` into
+    the first ``width`` columns, by exact integer indexing. Returns
+    (compacted groups [B, width] each, zero where no candidate landed;
+    compacted validity [B, width])."""
+    rank = jnp.cumsum(keep.astype(jnp.int32), axis=1) - 1  # [B, K]
+    sel = (
+        (rank[:, None, :] == jnp.arange(width, dtype=jnp.int32)[None, :, None])
+        & keep[:, None, :]
+    )  # [B, width, K]: output column p <- input column k
+    src = jnp.argmax(sel, axis=2)
+    valid = jnp.any(sel, axis=2)
+    taken = [
+        jnp.where(valid, jnp.take_along_axis(grp, src, axis=1), 0)
+        for grp in groups
+    ]
+    return taken, valid
 
 
 class SegmentDetector:
@@ -222,27 +246,18 @@ class SegmentDetector:
         return p
 
     def _resolved_backend(self) -> str:
-        """Resolve lifecycle_backend='auto' by the active device."""
-        backend = self.lifecycle_backend
-        if backend == "auto":
-            backend = (
-                "scan" if jax.default_backend() == "cpu" else "pallas"
-            )
-        return backend
+        return resolve_backend(self.lifecycle_backend)
 
     def _packed_candidates(self, power: jax.Array):
         """[B, n_cells] powers -> ([B, 7K] packed candidate rows, K).
 
         Candidates for ALL blocks at once (per-block independent). The
-        greedy acceptance is a lax.scan over K, but each iteration is
-        VECTORIZED over all B blocks — measured cost ~0.02 ms/step at
-        B=512. (Moving it inside the Pallas lifecycle kernel was tried
-        and is a PESSIMIZATION: there it lands on the kernel's serial
-        per-block chain, B*K sequential steps instead of K.) Candidate
-        geometry is slot-table-independent: batch-compute it over [B, K]
-        HERE rather than on the kernel's serial per-block chain, and pack
-        all 7 candidate vectors into one [B, 7K] array so the kernel's
-        per-block row->column transpose is ONE matmul instead of several.
+        greedy acceptance is K steps, each VECTORIZED over all B blocks
+        (inside the lifecycle kernel it would land on the serial
+        per-block chain: B*K sequential steps instead of K). Candidate
+        geometry is slot-table-independent too: batch-compute it over
+        [B, K] HERE rather than on the kernel's serial chain, and pack all
+        7 candidate vectors into one [B, 7K] array.
         """
         g = self.geometry
         # 0 = exact: every ratio position is a potential rising edge, so
@@ -250,10 +265,6 @@ class SegmentDetector:
         # reference's unbounded edge list
         # (reference: lib/SegmentDetection_impl.cc:208-243).
         k = self.k_detect
-        # hot-path batched form: the greedy acceptance runs as ONE
-        # Pallas kernel on TPU (its XLA unroll cost ~2 kernel launches
-        # per candidate, most of the packing marginal); CPU paths take
-        # the identical batched jnp loop
         cand_s, cand_e, cand_v = detect_candidates_batch(
             power, self.thresh, k, zero_floor=self.vcm,
             interpret=(self._resolved_backend() == "pallas_interpret"),
@@ -265,50 +276,14 @@ class SegmentDetector:
         # and so can distinguish refresh candidates (kept regardless of
         # ownership) from spawn candidates (core-owned only).
         # Compact accepted candidates to the front, order-preserving,
-        # ALWAYS — the greedy acceptance leaves invalid holes between
-        # accepted rows and the Pallas kernel's tier dispatch requires
-        # valid-first packs (its per-block k_eff body only reads the
-        # leading columns). Truncating to k_pack rows is bit-exact
-        # (see __init__: at most (n_cells - 1) // 2 survive the greedy
-        # acceptance). The one-hot contraction replaces a traced-index
-        # gather (slow TPU path); candidate values are small ints —
-        # exact in f32.
+        # ALWAYS: the greedy acceptance leaves invalid holes between
+        # accepted rows. Truncating to k_pack rows is bit-exact (see
+        # __init__: at most (n_cells - 1) // 2 survive the greedy
+        # acceptance).
         kp = self.k_pack
-        # prefix count as a triangular matmul: jnp.cumsum lowers to a
-        # reduce-window kernel that breaks the surrounding fusion;
-        # the [K, K] dot fuses with the one-hot contraction below
-        # (small ints exact in f32)
-        tri = (
-            jnp.arange(k, dtype=jnp.int32)[:, None]
-            <= jnp.arange(k, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)
-        rank = jnp.dot(
-            cand_v.astype(jnp.float32), tri,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32) - 1  # [B, K]
-        onehot = (
-            (rank[:, None, :]
-             == jnp.arange(kp, dtype=jnp.int32)[None, :, None])
-            & cand_v[:, None, :]
-        ).astype(jnp.float32)  # [B, kp, K]
-
-        # ONE stacked contraction for all three column groups (three
-        # separate einsums were three separate kernel launches — the
-        # scan stage is launch-bound, tools/ablate33_tpu.py)
-        vals = jnp.stack(
-            [
-                cand_s.astype(jnp.float32),
-                cand_e.astype(jnp.float32),
-                cand_v.astype(jnp.float32),
-            ],
-            axis=1,
-        )  # [B, 3, K]
-        taken = jnp.einsum(
-            "bpk,bnk->bnp", onehot, vals,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)  # [B, 3, kp]
-        cand_s, cand_e = taken[:, 0], taken[:, 1]
-        cand_v = taken[:, 2] > 0
+        (cand_s, cand_e), cand_v = _compact_front(
+            (cand_s, cand_e), cand_v, kp
+        )
         k = kp
         cand_s = cand_s * g.decimation + g.start  # -> bin coords
         cand_e = cand_e * g.decimation + g.start
@@ -327,37 +302,13 @@ class SegmentDetector:
 
     def _recompact_pack(self, packed: jax.Array, keep: jax.Array):
         """Order-preserving re-compaction of a [B, 7K] candidate pack
-        under a new validity mask ``keep`` [B, K] (same one-hot machinery
-        as _packed_candidates — the Pallas kernel requires valid-first
-        packs, so any post-hoc candidate filtering must re-compact)."""
+        under a new validity mask ``keep`` [B, K] (candidate filtering
+        after packing must keep the valid-first pack layout)."""
         k = self.k_pack
-        tri = (
-            jnp.arange(k, dtype=jnp.int32)[:, None]
-            <= jnp.arange(k, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)
-        rank = jnp.dot(
-            keep.astype(jnp.float32), tri,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32) - 1  # [B, K]
-        onehot = (
-            (rank[:, None, :]
-             == jnp.arange(k, dtype=jnp.int32)[None, :, None])
-            & keep[:, None, :]
-        ).astype(jnp.float32)  # [B, K, K]
-
-        # all 7 column groups through ONE stacked contraction (launch
-        # economy; group 2 is replaced by the compacted keep mask)
-        groups = [
-            packed[:, j * k:(j + 1) * k].astype(jnp.float32)
-            for j in range(7)
-        ]
-        groups[2] = keep.astype(jnp.float32)
-        vals = jnp.stack(groups, axis=1)  # [B, 7, K]
-        taken = jnp.einsum(
-            "bpk,bnk->bnp", onehot, vals,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)  # [B, 7, K]
-        return taken.reshape(taken.shape[0], 7 * k)
+        groups = [packed[:, j * k:(j + 1) * k] for j in range(7)]
+        taken, valid = _compact_front(groups, keep, k)
+        taken[2] = valid.astype(packed.dtype)
+        return jnp.concatenate(taken, axis=1)
 
     def reconcile_split(self, state, packed, kill_from, suppress_from):
         """Split-part pre-scan reconciliation (the cut contract).
@@ -435,10 +386,9 @@ class SegmentDetector:
             # the interval-overlap convention (cand cs < slot de AND
             # cand ce >= slot ds, the match_candidates rule) is EXACTLY
             # "candidate cells intersect slot cells extended one cell
-            # down": [cs, ce) ∩ [ds - dec, de) != ∅. The naive
-            # [B, K, S_f] interval tensors + a cumsum measured 0.29 ms
-            # per batch at cfg5-split shapes (tools/ablate35_tpu.py);
-            # this form is a few fused elementwise passes + one matmul.
+            # down": [cs, ce) ∩ [ds - dec, de) != ∅. This form is a few
+            # fused elementwise passes instead of [B, K, S_f] interval
+            # tensors.
             g = self.geometry
             dec = g.decimation
             c_n = g.n_cells
@@ -476,20 +426,11 @@ class SegmentDetector:
             # refreshes a slot spawned this batch — keep it. One hop
             # suffices for stationary carriers (every later candidate
             # overlaps the first kept one). Exclusive prefix-OR over
-            # blocks as a strict-triangular matmul (cumsum lowers to a
-            # fusion-breaking reduce-window kernel).
+            # blocks.
             covered = jnp.any(
                 in_int & keep0[:, :, None], axis=1
-            ).astype(jnp.float32)  # [B, C]
-            nb = covered.shape[0]
-            tri_strict = (
-                jnp.arange(nb, dtype=jnp.int32)[:, None]
-                > jnp.arange(nb, dtype=jnp.int32)[None, :]
-            ).astype(jnp.float32)
-            earlier = jnp.dot(
-                tri_strict, covered,
-                preferred_element_type=jnp.float32,
-            ) > 0.0  # [B, C]
+            ).astype(jnp.int32)  # [B, C]
+            earlier = (jnp.cumsum(covered, axis=0) - covered) > 0  # [B, C]
             chain_ov = jnp.any(
                 in_int & earlier[:, None, :], axis=2
             )  # [B, K]
@@ -532,18 +473,15 @@ class SegmentDetector:
 
         backend = self._resolved_backend()
         if backend in ("pallas", "pallas_interpret"):
-            from fdc_tpu.ops.lifecycle_pallas import slot_lifecycle
-
             if packed is None:
                 packed, _ = self._packed_candidates(power)
-            new_state, flags = slot_lifecycle(
+            # tombstones are freed in the kernel (same semantics as
+            # _free_tombstones on the lax.scan path)
+            return slot_lifecycle(
                 packed, state,
                 n_cand=self.k_pack, r=r, delay=delay,
                 interpret=(backend == "pallas_interpret"),
             )
-            # tombstones are freed IN-KERNEL (same semantics as
-            # _free_tombstones, which remains for the lax.scan path)
-            return new_state, flags
 
         # lax.scan reference path (see _packed_candidates for why the
         # candidate detection batches over [B, K] outside the scan)
@@ -733,24 +671,16 @@ class SegmentDetector:
         # processed it (activation reads rows b and b+1, processing row b+1;
         # emission reads nothing)
         need = jnp.any(got | processed, axis=0)  # [S]
-        # needy-first stable compaction WITHOUT a sort: prefix-sum ranks
-        # give each slot its target position directly, and the inverse
-        # permutation is a one-hot matmul. Equivalent to the former
-        # stable argsort(where(need, 0, 1)) — but the TPU sort lowering
-        # measured +0.035 ms on the FULL step (it breaks the surrounding
-        # fusion cluster; tools/ablate28_tpu.py V0-V1), dwarfing the
-        # plan's own ~0.003 ms arithmetic.
+        # needy-first stable compaction: prefix-sum ranks give each slot
+        # its target position; the inverse permutation is an argmax over
+        # the position-match matrix (exact integer indexing)
         n_need = jnp.sum(need.astype(jnp.int32))
         rank_needy = jnp.cumsum(need.astype(jnp.int32)) - 1
         rank_idle = n_need + jnp.cumsum((~need).astype(jnp.int32)) - 1
         pos = jnp.where(need, rank_needy, rank_idle)  # [S] target position
-        onehot = (
-            pos[None, :] == jnp.arange(s, dtype=jnp.int32)[:, None]
-        ).astype(jnp.float32)  # [S, S], row p hits the slot placed at p
-        ids = jnp.dot(
-            onehot, jnp.arange(s, dtype=jnp.float32),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)
+        ids = jnp.argmax(
+            pos[None, :] == jnp.arange(s, dtype=jnp.int32)[:, None], axis=1
+        ).astype(jnp.int32)  # row p: the slot placed at p
         overflow = jnp.maximum(n_need - jnp.int32(e), 0)
         return ids[:e], overflow
 
@@ -772,23 +702,15 @@ class SegmentDetector:
         need = jnp.any(got | processed, axis=0)  # [S]
 
         def pick(mask, budget):
-            # sort-free compaction (see extract_plan): chosen slots go to
-            # position rank[s] in index order; unfilled rows get the
-            # sentinel S via the empty one-hot row
+            # chosen slots go to position rank[s] in index order;
+            # unfilled rows get the sentinel S
             rank = jnp.cumsum(mask.astype(jnp.int32)) - 1
             chosen = mask & (rank < budget)
-            onehot = (
-                chosen[None, :]
-                & (rank[None, :]
-                   == jnp.arange(budget, dtype=jnp.int32)[:, None])
-            ).astype(jnp.float32)  # [budget, S]
-            hit = jnp.sum(onehot, axis=1)  # 1 if row filled else 0
-            ids = (
-                jnp.dot(
-                    onehot, jnp.arange(s, dtype=jnp.float32),
-                    preferred_element_type=jnp.float32,
-                )
-                + (1.0 - hit) * float(s)
+            sel = chosen[None, :] & (
+                rank[None, :] == jnp.arange(budget, dtype=jnp.int32)[:, None]
+            )  # [budget, S]
+            ids = jnp.where(
+                jnp.any(sel, axis=1), jnp.argmax(sel, axis=1), s
             ).astype(jnp.int32)
             return chosen, ids
 
@@ -815,33 +737,17 @@ class SegmentDetector:
         w_bucket = width or self.w_cap
         if slot_ids is None:
             slot_ids = jnp.arange(self.max_slots, dtype=jnp.int32)
-        # compacted slot geometry via one-hot matmuls (TPU gathers with
-        # traced indices are a slow path; these tables are tiny). Sentinel
-        # ids (== max_slots) match no column -> zero start/window.
-        onehot_slot = (
-            slot_ids[:, None]
-            == jnp.arange(self.max_slots, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)  # [E, S]
-
-        def take(v):
-            return jnp.dot(
-                onehot_slot, v.astype(jnp.float32),
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.int32)
-
-        ext_start = take(state["ext_start"])
-        wlog2 = take(state["wlog2"])
-        # sentinel rows (no matching slot column) get wlog2 = -1 so the
-        # window lookup below yields an all-zero window -> zero output
-        valid = jnp.sum(onehot_slot, axis=1) > 0.0
-        wlog2 = jnp.where(valid, wlog2, jnp.int32(-1))
+        # compacted slot geometry; sentinel ids (== max_slots) get
+        # wlog2 = -1 and an all-zero window -> zero output
+        valid = slot_ids < self.max_slots
+        ids = jnp.minimum(slot_ids, self.max_slots - 1)
+        ext_start = jnp.where(valid, state["ext_start"][ids], 0)
+        wlog2 = jnp.where(valid, state["wlog2"][ids], jnp.int32(-1))
         n_tables = int(math.log2(w_bucket)) + 1
-        onehot = (
-            wlog2[:, None] == jnp.arange(n_tables, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)
-        windows_pad = jnp.dot(
-            onehot, jnp.asarray(self.window_table[:n_tables, :w_bucket]),
-            preferred_element_type=jnp.float32,
+        table = jnp.asarray(self.window_table[:n_tables, :w_bucket])
+        in_table = (wlog2 >= 0) & (wlog2 < n_tables)
+        windows_pad = jnp.where(
+            in_table[:, None], table[jnp.clip(wlog2, 0, n_tables - 1)], 0.0
         )
         return extract_dynamic(
             spec_ext, ext_start, wlog2, windows_pad, w_bucket,
@@ -917,99 +823,48 @@ class SegmentDetector:
 
 def scan_slots_multi(segments, powers, states, packed_list=None,
                      powact=None):
-    """Fused lifecycle scans for multiple SegmentDetectors.
+    """Lifecycle scans for multiple SegmentDetectors.
 
     Segments are independent automata (the reference runs one std::thread
     per segment, lib/activity_detection_channelizer_vcm_impl.cc:293-304);
-    on the Pallas backend all G scans run in ONE kernel invocation on a
-    single serial per-block chain (their vector ops are mutually
-    independent -> instruction-level parallelism) instead of G
-    back-to-back latency-bound kernels. Bit-identical per segment to
-    ``sd.scan_slots`` (same op sequence per segment, no cross-segment
-    math).
-
-    Falls back to per-segment ``scan_slots`` when fewer than two segments
-    are given or any segment resolves to the lax.scan backend (CPU).
+    on the kernel backend all G scans run as G programs of ONE kernel
+    launch. Bit-identical per segment to ``sd.scan_slots`` (same op
+    sequence per segment, no cross-segment math). Segments on the
+    ``lax.scan`` backend run ``scan_slots`` one by one.
 
     ``packed_list`` (optional, per-segment [B, 7K_g] rows from
     ``_packed_candidates``) skips the candidate detection — see
     :meth:`SegmentDetector.scan_slots`.
 
-    ``powact`` (optional, ``(bank, pa_powers, pa_state)``) fuses the
-    PowerActivationBank hysteresis automaton into the SAME kernel
-    invocation when every automaton resolves to the same Pallas backend
-    (the scan stage is launch/glue dominated — tools/ablate28_tpu.py);
-    otherwise the bank's own ``scan_flags`` runs separately, identical
-    semantics. With ``powact`` the return value becomes
-    ``(seg_results, (pa_new_state, pa_flags))``.
+    ``powact`` (optional, ``(bank, pa_powers, pa_state)``) also runs the
+    PowerActivationBank hysteresis automaton (its own ``scan_flags``);
+    the return value then becomes ``(seg_results, (pa_new_state,
+    pa_flags))``.
 
     Returns a list of (new_state, (activated, processed, emit,
     phase_used)) pairs, one per segment, flags [B, S_g] in scan order.
     """
     backends = {sd._resolved_backend() for sd in segments}
-    pa_fusable = False
-    if powact is not None:
-        bank, pa_powers, pa_state = powact
-        pb = bank.lifecycle_backend
-        if pb == "auto":
-            pb = "scan" if jax.default_backend() == "cpu" else "pallas"
-        # fuse only when ALL automata run the same Pallas flavor
-        pa_fusable = (
-            len(segments) >= 1
-            and (backends | {pb}) in ({"pallas"}, {"pallas_interpret"})
+    if packed_list is None:
+        packed_list = [None] * len(segments)
+    if len(backends) == 1 and backends <= {"pallas", "pallas_interpret"}:
+        packed = tuple(
+            sd._packed_candidates(p)[0] if pk is None else pk
+            for sd, p, pk in zip(segments, powers, packed_list)
         )
-
-    if len(segments) < 2 and not pa_fusable or (
-        backends - {"pallas", "pallas_interpret"}
-    ):
-        if packed_list is None:
-            packed_list = [None] * len(segments)
+        seg_results = list(slot_lifecycle_multi(
+            packed, tuple(states),
+            n_cands=tuple(sd.k_pack for sd in segments),
+            rs=tuple(sd.relinvovl for sd in segments),
+            delays=tuple(sd.deactivation_delay for sd in segments),
+            interpret=("pallas_interpret" in backends),
+        ))
+    else:
         seg_results = [
             sd.scan_slots(p, st, packed=pk)
             for sd, p, st, pk in zip(segments, powers, states, packed_list)
         ]
-        if powact is None:
-            return seg_results
-        return seg_results, bank.scan_flags(pa_powers, pa_state)
-
-    from fdc_tpu.ops.lifecycle_pallas import slot_lifecycle_multi
-
-    if packed_list is not None:
-        packed = tuple(packed_list)
-        ks = tuple(sd.k_pack for sd in segments)
-    else:
-        packed, ks = zip(
-            *(sd._packed_candidates(p) for sd, p in zip(segments, powers))
-        )
-    kw = {}
-    if pa_fusable:
-        kw = dict(
-            powact={
-                "powers": pa_powers,
-                "lastpower": pa_state["lastpower"],
-                "active": pa_state["active"],
-                "phase": pa_state["phase"],
-                "delta": jnp.asarray(
-                    [g.delta_phase for g in bank.geometry], jnp.int32
-                ),
-            },
-            pa_r=bank.relinvovl,
-            pa_thresh=float(bank.thresh),
-        )
-    out = slot_lifecycle_multi(
-        tuple(packed), tuple(states),
-        n_cands=tuple(ks),
-        rs=tuple(sd.relinvovl for sd in segments),
-        delays=tuple(sd.deactivation_delay for sd in segments),
-        interpret=("pallas_interpret" in backends),
-        **kw,
-    )
-    # tombstones are freed in-kernel; no host-side _free_tombstones pass
-    if pa_fusable:
-        seg_results, pa_result = out
-        return list(seg_results), pa_result
-    seg_results = list(out)
-    if powact is not None:
-        # segments fused, bank on a different backend: scan it separately
-        return seg_results, bank.scan_flags(pa_powers, pa_state)
-    return seg_results
+    if powact is None:
+        return seg_results
+    bank, pa_powers, pa_state = powact
+    return seg_results, bank.scan_flags(pa_powers, pa_state)

@@ -122,7 +122,7 @@ class ThroughputChannelizer:
         [C, B*out_len, 2], y then being a pairs extraction).
 
         Accepts y of [C, B, l(, 2)] (trims the l//R overlap here) or
-        already overlap-trimmed [C, B, out_len(, 2)] (the MXU path never
+        already overlap-trimmed [C, B, out_len(, 2)] (the matmul path never
         computes the dropped columns). ``prephased``: y already carries
         the per-block phase compensation (extract_bucket_phased) — only
         trim + reshape here. Separated from ``extract`` so the

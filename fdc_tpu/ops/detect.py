@@ -4,7 +4,7 @@ Fixed-shape, fully-batched re-expressions of the reference's sequential
 detection code:
 
 - ``band_power``: per-block in-band power sums for many bands at once as one
-  |X|^2 matmul (MXU) — replaces the per-channel scalar accumulation loop
+  |X|^2 matmul — replaces the per-channel scalar accumulation loop
   (reference: lib/PowerActivationChannel_impl.cc:286-306).
 - ``cell_power``: decimated power spectrum over a segment
   (reference: lib/SegmentDetection_impl.cc:178-193).
@@ -23,6 +23,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
 __all__ = [
     "band_power",
@@ -42,11 +44,14 @@ _BIG = jnp.int32(2**30)
 def band_power(spectrum_sq: jax.Array, band_masks: jax.Array) -> jax.Array:
     """Per-band power sums: [B, N] |X|^2 x [N, C] 0/1 masks -> [B, C].
 
-    One MXU matmul replaces C scalar accumulation loops
-    (reference: lib/PowerActivationChannel_impl.cc:286-306).
+    One matmul replaces C scalar accumulation loops
+    (reference: lib/PowerActivationChannel_impl.cc:286-306). Full float32
+    precision: a rounded power can flip a burst decision that sits near
+    its threshold.
     """
     return jnp.dot(
-        spectrum_sq, band_masks, preferred_element_type=jnp.float32
+        spectrum_sq, band_masks, precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
     )
 
 
@@ -92,11 +97,10 @@ def detect_edges(
     paired with the nearest following falling edge) that the reference
     builds before its sequential accept loop
     (reference: lib/SegmentDetection_impl.cc:195-230). The greedy
-    acceptance is applied by :func:`detect_candidates` on BOTH backends —
-    the Pallas lifecycle kernel documents its candidates as PRE-ACCEPTED
-    (an in-kernel unrolled acceptance was tried and reverted: it runs on
-    the kernel's serial per-block chain, +0.5 ms — see PERFORMANCE.md).
-    Do not feed detect_edges output to the kernel directly.
+    acceptance is applied by :func:`detect_candidates` /
+    :func:`greedy_accept_batch`; the lifecycle kernel expects its
+    candidates PRE-ACCEPTED, so do not feed detect_edges output to it
+    directly.
 
     Returns (cand_s, cand_e, has_pair): [K] int32 cell coordinates in
     strength order and the paired-validity mask.
@@ -128,46 +132,26 @@ def detect_edges(
     # (reference: lib/SegmentDetection_impl.cc:203-207) — so validity is
     # "> thresh", not isfinite.
     rise_strength = jnp.where(rise, ratio, -jnp.inf)
-    nf_clamped = jnp.minimum(next_fall, n_r).astype(jnp.float32)
     if k_eff == n_r:
-        # exact all-edges mode: the "top k of k" is a FULL sort, and TPU
-        # sort ops break the surrounding fusion cluster (the same lesson
-        # as extract_plan's argsort, PERFORMANCE.md/ablate28). A total
-        # strength order over n_r elements is cheaper as a comparison
-        # matrix: rank_j = #{i stronger than j} (ties by lower index,
-        # exactly lax.top_k's stable order), then the permutation is a
-        # one-hot matmul — O(n_r^2) fully-vectorized elementwise work,
-        # no sort primitive.
+        # exact all-edges mode: the "top k of k" is a full sort. A total
+        # strength order over n_r elements as a comparison matrix:
+        # rank_j = #{i stronger than j} (ties by lower index, exactly
+        # lax.top_k's stable order); the inverse permutation is an argmax
+        # over the rank-match matrix (exact integer indexing).
         s_i = rise_strength[:, None]  # compared-to
         s_j = rise_strength[None, :]  # ranked
         stronger = (s_i > s_j) | (
             (s_i == s_j) & (idx[:, None] < idx[None, :])
         )
         rank = jnp.sum(stronger.astype(jnp.int32), axis=0)  # [n_r]
-        onehot = (
-            rank[None, :] == jnp.arange(n_r, dtype=jnp.int32)[:, None]
-        ).astype(jnp.float32)  # [k_eff, n_r] permutation, row p = rank p
-
-        def perm(v):
-            return jnp.dot(
-                onehot, v, preferred_element_type=jnp.float32
-            )
-
-        top_i = perm(idx.astype(jnp.float32)).astype(jnp.int32)
-        has_rise = perm(rise.astype(jnp.float32)) > 0.0
-        nf = perm(nf_clamped).astype(jnp.int32)
+        top_i = jnp.argmax(
+            rank[None, :] == idx[:, None], axis=1
+        ).astype(jnp.int32)  # [k_eff]: position p holds the rank-p edge
+        has_rise = rise[top_i]
     else:
         top_val, top_i = jax.lax.top_k(rise_strength, k_eff)  # [k_eff]
         has_rise = top_val > jnp.float32(thresh)
-        # next_fall[top_i] as a one-hot matmul (traced-index gathers are
-        # a slow TPU path); sentinel clamped to n_r so the f32
-        # accumulate stays exact
-        onehot = (
-            top_i[:, None] == jnp.arange(n_r, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)
-        nf = jnp.dot(
-            onehot, nf_clamped, preferred_element_type=jnp.float32
-        ).astype(jnp.int32)
+    nf = jnp.minimum(next_fall, n_r)[top_i]
     has_pair = has_rise & (nf < n_r)
 
     cand_s = top_i.astype(jnp.int32)  # start cell (the low cell before rise)
@@ -180,67 +164,75 @@ def detect_edges(
     return cand_s, cand_e, has_pair
 
 
-def _greedy_accept_kernel(cs_ref, ce_ref, hp_ref, out_ref, *, k):
-    """Greedy non-overlap acceptance for a whole batch in ONE kernel.
+def _greedy_accept_kernel(cs_ref, ce_ref, hp_ref, out_ref, *, k, rows):
+    """Greedy non-overlap acceptance for ``rows`` blocks of one tile.
 
-    Layout [K, B]: candidates on SUBLANES so each step's candidate is a
-    free static sublane slice and the blocked test is a sublane
-    reduction — the whole K-step chain lives in registers. The XLA
-    unrolled form emits ~2 kernels per step (the per-step `any`
-    reduction breaks elementwise fusion; ~64 launches at K=32 measured
-    as most of the candidate-packing marginal, tools/ablate33_tpu.py).
-    """
-    cs = cs_ref[:].astype(jnp.float32)  # [K, B]; small ints exact in f32
-    ce = ce_ref[:].astype(jnp.float32)
-    hp = hp_ref[:]
-    row = jax.lax.broadcasted_iota(jnp.int32, cs.shape, 0)
-    acc = jnp.zeros(cs.shape, jnp.float32)
+    Candidates in strength order along the columns; each of the K steps
+    tests candidate j of every block against the accepted set so far,
+    which stays in registers for the whole chain."""
+    b0 = pl.program_id(0) * rows
+    blk = pl.ds(b0, rows)
+    cs = cs_ref[blk, :]  # [rows, Kp]
+    ce = ce_ref[blk, :]
+    col = jax.lax.broadcasted_iota(jnp.int32, cs.shape, 1)
+    acc = jnp.zeros(cs.shape, jnp.int32)
     for j in range(k):
-        ov_j = (cs[j:j + 1, :] < ce) & (ce[j:j + 1, :] >= cs)  # [K, B]
-        blocked = jnp.sum(
-            jnp.where(ov_j, acc, 0.0), axis=0, keepdims=True
-        )  # [1, B]
-        accept = (hp[j:j + 1, :] != 0) & (blocked == 0.0)
-        acc = jnp.where((row == j) & accept, 1.0, acc)
-    out_ref[:] = acc.astype(jnp.int32)
+        cs_j = cs_ref[blk, j]  # [rows]
+        ce_j = ce_ref[blk, j]
+        ov = (cs_j[:, None] < ce) & (ce_j[:, None] >= cs)
+        blocked = jnp.max(jnp.where(ov, acc, 0), axis=1)  # [rows]
+        accept = (hp_ref[blk, j] != 0) & (blocked == 0)
+        acc = jnp.where((col == j) & accept[:, None], 1, acc)
+    out_ref[blk, :] = acc
+
+
+def _greedy_accept_pallas(cand_s, cand_e, has_pair, interpret=False):
+    b, k = cand_s.shape
+    rows = 32
+    kp = max(16, 1 << max(0, k - 1).bit_length())
+    bp = -(-b // rows) * rows
+    pad = ((0, bp - b), (0, kp - k))
+    ins = [
+        jnp.pad(a.astype(jnp.int32), pad)
+        for a in (cand_s, cand_e, has_pair)
+    ]
+    out = pl.pallas_call(
+        functools.partial(_greedy_accept_kernel, k=k, rows=rows),
+        out_shape=jax.ShapeDtypeStruct((bp, kp), jnp.int32),
+        grid=(bp // rows,),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name="greedy_accept",
+    )(*ins)
+    return out[:b, :k] != 0
+
+
+def _greedy_accept_jnp(cand_s, cand_e, has_pair):
+    # batched form of detect_candidates' unrolled loop
+    b, k = cand_s.shape
+    ov = (cand_s[:, :, None] < cand_e[:, None, :]) & (
+        cand_e[:, :, None] >= cand_s[:, None, :]
+    )  # [B, K(j), K(i)]
+    acc_v = jnp.zeros((b, k), bool)
+    eye = jnp.eye(k, dtype=bool)
+    for j in range(k):
+        overlap = jnp.any(acc_v & ov[:, j, :], axis=1, keepdims=True)
+        acc_v = acc_v | (
+            eye[j][None, :] & (has_pair[:, j:j + 1] & ~overlap)
+        )
+    return acc_v
 
 
 def greedy_accept_batch(cand_s, cand_e, has_pair, interpret=False):
     """Batched greedy overlap rejection: [B, K] candidate intervals in
     strength order -> [B, K] accepted mask (exact reference semantics,
     identical to the per-block loop in :func:`detect_candidates`).
-    One Pallas kernel on TPU; pure-jnp unrolled fallback elsewhere."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    b, k = cand_s.shape
-    if not (jax.default_backend() == "tpu" or interpret):
-        # batched form of detect_candidates' lean unrolled loop
-        ov = (cand_s[:, :, None] < cand_e[:, None, :]) & (
-            cand_e[:, :, None] >= cand_s[:, None, :]
-        )  # [B, K(j), K(i)]
-        acc_v = jnp.zeros((b, k), bool)
-        eye = jnp.eye(k, dtype=bool)
-        for j in range(k):
-            overlap = jnp.any(acc_v & ov[:, j, :], axis=1, keepdims=True)
-            acc_v = acc_v | (
-                eye[j][None, :] & (has_pair[:, j:j + 1] & ~overlap)
-            )
-        return acc_v
-
-    vm = pl.BlockSpec(memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_greedy_accept_kernel, k=k),
-        out_shape=jax.ShapeDtypeStruct((k, b), jnp.int32),
-        in_specs=[vm, vm, vm],
-        out_specs=vm,
-        interpret=interpret,
-    )(
-        cand_s.T.astype(jnp.int32),
-        cand_e.T.astype(jnp.int32),
-        has_pair.T.astype(jnp.int32),
-    )
-    return out.T != 0
+    One kernel on the GPU (or in interpret mode); the unrolled jnp loop
+    elsewhere."""
+    if interpret or jax.default_backend() == "gpu":
+        return _greedy_accept_pallas(cand_s, cand_e, has_pair, interpret)
+    return _greedy_accept_jnp(cand_s, cand_e, has_pair)
 
 
 def detect_candidates_batch(
@@ -310,17 +302,13 @@ def detect_candidates(
 
     # greedy overlap rejection in strength order, exact reference test.
     # Small K unrolls statically: candidate j only needs the accepted set
-    # so far, which lives in registers — the whole acceptance chain fuses
-    # into one kernel with no loop machinery. Larger K keeps the lax.scan
-    # (``greedy_unroll`` is the threshold; tools/ablate31_tpu.py measures
-    # the crossover).
+    # so far, so the chain needs no loop machinery. Larger K keeps the
+    # lax.scan (``greedy_unroll`` is the threshold).
     if k <= greedy_unroll:
         # precompute the pairwise overlap matrix ONCE (fused elementwise);
         # the unrolled recurrence then only carries the accept vector and
         # each step is two ops (mask + any) plus a static one-hot OR —
-        # no dynamic-update-slice per candidate (halves the op count of
-        # the naive unroll, which showed up at exact-mode K=32;
-        # tools/ablate31_tpu.py)
+        # no dynamic-update-slice per candidate
         ov = (cand_s[:, None] < cand_e[None, :]) & (
             cand_e[:, None] >= cand_s[None, :]
         )  # ov[j, i]: candidate j overlaps candidate i

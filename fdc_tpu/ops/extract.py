@@ -8,7 +8,7 @@ reference: python/FrequencyDomainChannelizer.py:218-231) and the
 lib/SegmentDetection_impl.cc:399-429).
 
 Channels of equal width are batched into one [C, B, l] tensor so the windowed
-multiply and the IFFT run as single large VPU/FFT ops.
+multiply and the IFFT run as single large batched ops.
 
 Phase compensation: every phase copy in the reference's window banks is the
 base window times a constant scalar e^{j*2pi*p/R} (reference:
@@ -22,14 +22,13 @@ per-block phase as a scalar complex rotation on the IFFT output
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from fdc_tpu.ops.fft import (
     _rr_idft_matrix,
+    dft_matmul,
     interp_subband_ifft,
     interp_subband_ifft_mxu,
     subband_ifft,
@@ -45,17 +44,12 @@ __all__ = [
     "gather_slices",
     "extract_bucket",
     "extract_bucket_phased",
-    "extract_bucket_measured",
-    "measured_folded_matrix",
     "extract_dynamic",
 ]
 
 
 def phase_table(relinvovl: int) -> jax.Array:
-    """[R] complex64 table of e^{j*2pi*p/R} phase-compensation factors.
-
-    Computed with device ops (not a host complex constant) because some TPU
-    runtimes cannot transfer complex buffers host->device."""
+    """[R] complex64 table of e^{j*2pi*p/R} phase-compensation factors."""
     ang = (2.0 * np.pi / relinvovl) * jnp.arange(relinvovl, dtype=jnp.float32)
     return jax.lax.complex(jnp.cos(ang), jnp.sin(ang))
 
@@ -64,9 +58,8 @@ def apply_phase(y: jax.Array, phase_idx: jax.Array, relinvovl: int) -> jax.Array
     """Multiply [..., L] outputs by the scalar phase factor of each row.
 
     phase_idx: integer array broadcastable against y's batch dims. The
-    R-entry table lookup is a one-hot contraction, not a gather — a traced
-    [C, B]-index gather is a slow TPU path, and R is tiny (the table is
-    e^{j*2pi*p/R}, p in [0, R)).
+    R-entry table lookup is an elementwise one-hot sum (R is tiny: the
+    table is e^{j*2pi*p/R}, p in [0, R)), which fuses into the multiply.
     """
     ang = (2.0 * np.pi / relinvovl) * jnp.arange(
         relinvovl, dtype=jnp.float32
@@ -174,141 +167,6 @@ def gather_slices(spectrum: jax.Array, starts: jax.Array, width: int) -> jax.Arr
     return jax.vmap(cut)(starts.astype(jnp.int32))
 
 
-_FUSED_MODES = ("all", "static", "off")
-
-
-def _fused_mode() -> str:
-    """Runtime kill switch for the fused Pallas extraction kernels, read
-    at trace time: ``FDC_TPU_FUSED=off`` disables both fused paths (pure
-    XLA extraction), ``=static`` disables only the shared-matrix kernel
-    (the per-channel kernel still engages when it fits VMEM). Default:
-    everything on. bench.py flips this to fall back automatically if a
-    freshly-landed kernel fails to lower on the real chip — the bench
-    must always produce a number.
-
-    Unrecognized values raise (fail LOUD, not open): an operator setting
-    this is trying to kill a kernel that wedges the chip — silently
-    running it anyway is the one wrong answer."""
-    mode = os.environ.get("FDC_TPU_FUSED", "all").strip().lower()
-    if mode not in _FUSED_MODES:
-        raise ValueError(
-            f"FDC_TPU_FUSED={mode!r}: must be one of {_FUSED_MODES}"
-        )
-    return mode
-
-
-def _fold_phase_enabled() -> bool:
-    """In-kernel quarter-turn phase folding is OFF by default: on the real
-    chip the folded shared kernel measured ~0.10 ms/step SLOWER than the
-    unphased shared kernel + the apply_phase_pairs pass it replaces on the
-    flagship tp bucket (tools/ablate19_tpu.py, marginals over the FFT
-    front: folded +0.217 ms vs unphased +0.120 ms vs XLA +0.233 ms — the
-    fold's per-tile select/negate/swap work exceeds the whole output-pass
-    it removes). ``FDC_TPU_FOLD_PHASE=1`` re-enables it for A/B runs;
-    numerics of both routes are pinned by tests/test_extract_pallas.py.
-
-    Unrecognized values raise (fail LOUD, same contract as _fused_mode's
-    env knob): an operator typing 'true'/'yes' is trying to A/B the fold —
-    silently measuring the default route instead is the one wrong answer."""
-    val = os.environ.get("FDC_TPU_FOLD_PHASE", "0").strip()
-    if val not in ("0", "1"):
-        raise ValueError(
-            f"FDC_TPU_FOLD_PHASE={val!r}: must be '0' or '1'"
-        )
-    return val == "1"
-
-
-def _fused_interpret() -> bool:
-    """Test-only knob: ``FDC_TPU_FUSED_INTERPRET=1`` lets the fused Pallas
-    extraction kernels engage OFF the TPU backend, running in Pallas
-    interpreter mode. This is how the CPU-mesh tests exercise the
-    multi-chan fused-measures integration (the engagement gates are
-    otherwise TPU-only, so a virtual mesh would silently test the XLA
-    fallback instead). Never set in production."""
-    val = os.environ.get("FDC_TPU_FUSED_INTERPRET", "0").strip()
-    if val not in ("0", "1"):
-        raise ValueError(
-            f"FDC_TPU_FUSED_INTERPRET={val!r}: must be '0' or '1'"
-        )
-    return val == "1"
-
-
-def _shared_fused_matrix(
-    n, starts, base_windows, l, keep_from, gain, fold_phase_r=0
-):
-    """Decide whether the fused shared-matrix Pallas kernel can engage,
-    and build its folded window+IDFT matrix if so.
-
-    Engagement requires an equal-window fully static bucket (numpy
-    windows AND starts) on the TPU backend within the kernel's VMEM
-    budget; with ``fold_phase_r`` set, additionally R in {1, 2, 4} with
-    the kernel's block tile a multiple of R (the quarter-turn fold's
-    row-group pattern must align to tiles). ``n`` is the spectrum width
-    (the gate is shape-only, so callers that need the decision BEFORE
-    tracing — e.g. ShardedChannelizer's rank-uniformity check — can
-    evaluate it at build time). Returns the [2l, 2k] float32 matrix, or
-    None when the caller must take a fallback path. The single decision
-    point for :func:`extract_bucket`, :func:`extract_bucket_phased` and
-    :func:`extract_bucket_measured` — keep the gates and the fold layout
-    here so the entry points cannot drift.
-    """
-    if _fused_mode() in ("off", "static"):
-        return None
-    if not (
-        isinstance(base_windows, np.ndarray)
-        and isinstance(starts, np.ndarray)
-        and (jax.default_backend() == "tpu" or _fused_interpret())
-        and (base_windows == base_windows[:1]).all()
-    ):
-        return None
-    from fdc_tpu.ops.extract_pallas import (
-        _TB_SHARED, _VMEM_BUDGET, fused_shared_vmem_bytes,
-    )
-
-    if fold_phase_r and (
-        fold_phase_r not in (1, 2, 4) or _TB_SHARED % fold_phase_r
-    ):
-        return None
-    m = _rr_idft_matrix(l, keep_from, True, float(gain), pairs=True)
-    folded_sh = (
-        np.concatenate([base_windows[0], base_windows[0]])[:, None] * m
-    ).astype(np.float32)  # [2l, 2k]
-    if (
-        fused_shared_vmem_bytes(len(starts), l, folded_sh.shape[1], n)
-        > _VMEM_BUDGET
-    ):
-        return None
-    return folded_sh
-
-
-def measured_folded_matrix(n, starts, base_windows, l, keep_from, gain,
-                           n_masks):
-    """The engagement gate of :func:`extract_bucket_measured`, evaluable
-    from shapes alone (``n`` = spectrum width, ``n_masks`` = measure-mask
-    columns): returns the folded matrix when the shared kernel + in-kernel
-    measures fit, else None. ShardedChannelizer uses this at build time to
-    check that EVERY chan rank's branch engages — lax.switch branches must
-    agree on whether a powers leaf exists."""
-    folded_sh = _shared_fused_matrix(
-        n, starts, base_windows, l, keep_from, gain
-    )
-    if folded_sh is None:
-        return None
-    from fdc_tpu.ops.extract_pallas import (
-        _TB_SHARED, _VMEM_BUDGET, fused_shared_vmem_bytes,
-    )
-
-    if (
-        fused_shared_vmem_bytes(
-            len(starts), l, folded_sh.shape[1], n,
-            tb=_TB_SHARED, n_masks=n_masks,
-        )
-        > _VMEM_BUDGET
-    ):
-        return None
-    return folded_sh
-
-
 def extract_bucket(
     spectrum: jax.Array,
     starts: jax.Array,
@@ -324,19 +182,19 @@ def extract_bucket(
       spectrum: [B, N] normalized fftshifted spectra.
       starts: [C] int32 slice start bins.
       base_windows: [C, l] window amplitudes (phase-0 copies). Pass a
-        CONCRETE np.ndarray on the MXU path to fold the window into the
+        CONCRETE np.ndarray on the matmul path to fold the window into the
         per-channel DFT matrix at trace time (drops the windowed-multiply
         pass over the slices); traced arrays (e.g. sharded table views)
         take the multiply-then-matmul path.
       gain: scalar gain (the reference's trailing multiply_const,
         reference: python/FrequencyDomainChannelizer.py:231).
-      use_mxu: run the subband inverse transform as a matmul-DFT on the
-        MXU instead of the VPU FFT (the ``use_mxu_fft`` config knob).
+      use_mxu: run the subband inverse transform as a matmul-DFT
+        instead of the FFT lowering (the ``use_mxu_fft`` config knob).
       keep_from: drop output time samples before this index (the l//R
-        overlap trim). On the MXU path the dropped columns are never
+        overlap trim). On the matmul path the dropped columns are never
         computed (folded into the DFT matrix); the FFT path slices.
       pairs: return the float32 ``[..., 2]`` host-boundary pair layout
-        instead of complex. On the MXU path the pairs come straight out
+        instead of complex. On the matmul path the pairs come straight out
         of the (column-interleaved) matmul — the complexify + c2f passes
         over the output tensor disappear; values are bit-identical.
 
@@ -350,43 +208,8 @@ def extract_bucket(
     if use_mxu and isinstance(base_windows, np.ndarray):
         # static windows fold into per-channel DFT matrices at trace time:
         # (z ⊙ w) @ M == z @ (diag([w; w]) M). Drops the whole windowed-
-        # multiply pass over the [C, B, l] slices (bit-identical on TPU,
-        # measured -25% on the tp bucket marginal; tools/ablate11_tpu.py).
+        # multiply pass over the [C, B, l] slices.
         m = _rr_idft_matrix(l, keep_from, True, float(gain), pairs=pairs)
-        if (
-            pairs
-            and isinstance(starts, np.ndarray)
-            and (jax.default_backend() == "tpu" or _fused_interpret())
-        ):
-            # fully static bucket on TPU: fused Pallas slice+matmul keeps
-            # the spectrum tile in VMEM — no gathered-slice or planar
-            # intermediates ever hit HBM (3.4x on the flagship tp bucket;
-            # fdc_tpu/ops/extract_pallas.py)
-            from fdc_tpu.ops.extract_pallas import (
-                fits_vmem, fused_extract_shared, fused_extract_static,
-            )
-
-            folded_sh = _shared_fused_matrix(
-                spectrum.shape[1], starts, base_windows, l, keep_from, gain
-            )
-            if folded_sh is not None:
-                return fused_extract_shared(
-                    spectrum, starts, folded_sh, pairs=True,
-                    interpret=_fused_interpret(),
-                )
-            folded = (
-                np.concatenate(
-                    [base_windows, base_windows], axis=1
-                )[:, :, None]
-                * m[None]
-            ).astype(np.float32)  # [C, 2l, 2k]
-            if _fused_mode() != "off" and fits_vmem(
-                folded.shape[0], l, folded.shape[2], spectrum.shape[1]
-            ):
-                return fused_extract_static(
-                    spectrum, starts, folded, pairs=True,
-                    interpret=_fused_interpret(),
-                )
         slices = gather_slices(spectrum, starts, l)  # [C, B, l]
         zri = jnp.concatenate(
             [jnp.real(slices), jnp.imag(slices)], axis=-1
@@ -394,18 +217,14 @@ def extract_bucket(
         if (base_windows == base_windows[:1]).all():
             # equal windows across the bucket (the common equal-bandwidth
             # case): ONE flat matmul [C*B, 2l] @ [2l, 2k] instead of C
-            # batched small matmuls — the M dimension tiles the MXU far
-            # better than 513-row batch elements. Bit-identical (same
-            # per-element contraction).
+            # batched small matmuls (same per-element contraction).
             mc = (
                 np.concatenate([base_windows[0], base_windows[0]])[:, None]
                 * m
             ).astype(np.float32)  # [2l, 2k]
             c, b, l2 = zri.shape
-            y = jnp.dot(
-                zri.reshape(c * b, l2), jnp.asarray(mc),
-                precision=jax.lax.Precision.HIGH,
-                preferred_element_type=jnp.float32,
+            y = dft_matmul(
+                zri.reshape(c * b, l2), jnp.asarray(mc)
             ).reshape(c, b, -1)  # [C, B, 2k]
         else:
             mc = (
@@ -414,11 +233,7 @@ def extract_bucket(
                 )[:, :, None]
                 * m[None]
             ).astype(np.float32)  # [C, 2l, 2k]
-            y = jax.lax.dot_general(
-                zri, jnp.asarray(mc), (((2,), (1,)), ((0,), (0,))),
-                precision=jax.lax.Precision.HIGH,
-                preferred_element_type=jnp.float32,
-            )  # [C, B, 2k]
+            y = dft_matmul(zri, jnp.asarray(mc))  # [C, B, 2k]
         kept = mc.shape[-1] // 2
         if pairs:
             return y.reshape(*y.shape[:-1], kept, 2)
@@ -450,33 +265,11 @@ def extract_bucket_phased(
     guarantee it by keeping batch_blocks a multiple of relinvovl (t0 is
     always a whole number of batches). Then the per-row phase index
     ((t0 + b) * start_c) % R == ((b % R) * start_c) % R is a STATIC
-    pattern, and for R in {1, 2, 4} every factor is an exact quarter
-    turn — the fused Pallas path folds it into the extraction kernel as
-    selects/negates/swaps, eliminating the apply_phase_pairs pass over
-    the [C, B, k, 2] output (reference semantics:
-    lib/phase_shifting_windowing_vcc_impl.cc:80-83).
-
-    Falls back to extract_bucket + apply_phase_pairs (same values up to
-    the quarter-turn trig round-off of the one-hot path, which the fold
-    computes exactly) whenever the fused shared-matrix path cannot
-    engage. Always returns phase-compensated [C, B, k, 2] float32.
+    pattern (reference semantics:
+    lib/phase_shifting_windowing_vcc_impl.cc:80-83). Returns
+    phase-compensated [C, B, k, 2] float32.
     """
-    l = base_windows.shape[-1] if hasattr(base_windows, "shape") else len(
-        base_windows[0]
-    )
     r = relinvovl
-    if use_mxu and _fold_phase_enabled():
-        folded_sh = _shared_fused_matrix(
-            spectrum.shape[1], starts, base_windows, l, keep_from, gain,
-            fold_phase_r=r,
-        )
-        if folded_sh is not None:
-            from fdc_tpu.ops.extract_pallas import fused_extract_shared
-
-            return fused_extract_shared(
-                spectrum, starts, folded_sh, fold_phase_r=r, pairs=True,
-                interpret=_fused_interpret(),
-            )
     y = extract_bucket(
         spectrum, starts, base_windows, gain=gain, use_mxu=use_mxu,
         keep_from=keep_from, pairs=True,
@@ -487,67 +280,6 @@ def extract_bucket_phased(
         * jnp.asarray(starts, jnp.int32)[:, None]
     ) % r
     return apply_phase_pairs(y, phase_idx, r)
-
-
-def extract_bucket_measured(
-    spectrum: jax.Array,
-    starts,
-    base_windows,
-    relinvovl: int,
-    power_masks: np.ndarray,
-    gain: float = 1.0,
-    use_mxu: bool = False,
-    keep_from: int = 0,
-):
-    """:func:`extract_bucket_phased` + in-kernel |X|² power measures.
-
-    When the shared fused kernel engages on this bucket (TPU backend,
-    static equal-window bucket within the VMEM budget including the mask
-    matrix), the per-band/per-cell power sums of the detection consumers
-    ride the extraction kernel's VMEM-resident spectrum tiles — the
-    separate |X|² pass plus the band_power / cell_power reduce kernels
-    disappear (reference measures:
-    lib/PowerActivationChannel_impl.cc:286-306,
-    lib/SegmentDetection_impl.cc:178-193).
-
-    Returns (y, powers): y is the phase-compensated [C, B, k, 2]
-    extraction (same values/contract as extract_bucket_phased); powers
-    is [B, Cm] float32 = |spectrum|² @ power_masks, or None when the
-    kernel cannot engage and the caller must run its own XLA measure
-    passes. `powers`' accumulation order differs from the XLA reduces at
-    ~1e-7 rel — acceptable for the dB-scale detection thresholds, see
-    the caller's note in fdc_tpu/models/channelizer.py.
-    """
-    l = base_windows.shape[-1] if hasattr(base_windows, "shape") else len(
-        base_windows[0]
-    )
-    r = relinvovl
-    folded_sh = (
-        measured_folded_matrix(
-            spectrum.shape[1], starts, base_windows, l, keep_from, gain,
-            power_masks.shape[1],
-        )
-        if use_mxu
-        else None
-    )
-    if folded_sh is None:
-        y = extract_bucket_phased(
-            spectrum, starts, base_windows, relinvovl, gain=gain,
-            use_mxu=use_mxu, keep_from=keep_from,
-        )
-        return y, None
-    from fdc_tpu.ops.extract_pallas import fused_extract_shared
-
-    y, powers = fused_extract_shared(
-        spectrum, starts, folded_sh, pairs=True, power_masks=power_masks,
-        interpret=_fused_interpret(),
-    )
-    b = y.shape[1]
-    phase_idx = (
-        jnp.arange(b, dtype=jnp.int32)[None, :]
-        * jnp.asarray(starts, jnp.int32)[:, None]
-    ) % r
-    return apply_phase_pairs(y, phase_idx, r), powers
 
 
 def extract_dynamic(

@@ -14,7 +14,7 @@ identities keep all of that in single fused batched ops here:
    comb-upsampled by q (bins placed at multiples of q); the W-point output is
    w-periodic. This lets dynamically-sized detection channels of *any*
    power-of-2 width share ONE static-shape batched IFFT of width W
-   (``comb_subband_ifft``) — the TPU-native replacement for the reference's
+   (``comb_subband_ifft``) — the static-shape replacement for the reference's
    per-channel variable-size FFTW plans
    (reference: lib/SegmentDetection_impl.cc:404).
 """
@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 
 __all__ = [
+    "DFT_PRECISION",
+    "dft_matmul",
     "forward_spectrum",
     "forward_spectrum_mxu",
     "subband_ifft",
@@ -37,6 +39,21 @@ __all__ = [
 ]
 
 
+# Precision of every DFT matmul (the four-step forward transform and the
+# subband transforms). On the GPU, DEFAULT and HIGH round float32 operands
+# to TF32 (11 significant bits, ~1e-3 relative error), looser than the
+# stream contract (rtol 2e-4 / atol 2e-5); HIGHEST keeps float32. PERF.md
+# records the measured error and cost of each choice on the card.
+DFT_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def dft_matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    """Float32 matmul at :data:`DFT_PRECISION` (batch dims broadcast)."""
+    return jnp.matmul(
+        a, b, precision=DFT_PRECISION, preferred_element_type=jnp.float32
+    )
+
+
 def forward_spectrum(blocks: jax.Array, use_mxu: bool = False) -> jax.Array:
     """Batched forward FFT with fftshifted output and 1/N scaling.
 
@@ -45,8 +62,7 @@ def forward_spectrum(blocks: jax.Array, use_mxu: bool = False) -> jax.Array:
     (reference: python/FrequencyDomainChannelizer.py:206,214-216).
 
     use_mxu routes to :func:`forward_spectrum_mxu` (the ``use_mxu_fft``
-    config knob) for N >= 256; smaller transforms stay on the FFT path
-    (the matmul split is pointless below one MXU tile).
+    config knob) for N >= 256; smaller transforms stay on the FFT path.
     """
     if use_mxu and blocks.shape[-1] >= 256:
         return forward_spectrum_mxu(blocks)
@@ -58,7 +74,7 @@ def forward_spectrum(blocks: jax.Array, use_mxu: bool = False) -> jax.Array:
 
 @functools.lru_cache(maxsize=None)
 def _four_step_matrices(n: int):
-    """Constant matrices for the two-stage (four-step) MXU forward FFT.
+    """Constant matrices for the two-stage (four-step) matmul forward FFT.
 
     N = m1*m2 (m1 = 2^ceil(log2(N)/2)). Stage 1 (left-multiply, FFT over
     the n1 axis of the [m1, m2] view): rr matrix W1 [2m1, 2m1] of the
@@ -99,25 +115,21 @@ def _four_step_matrices(n: int):
 
 
 def forward_spectrum_mxu(blocks: jax.Array) -> jax.Array:
-    """:func:`forward_spectrum` as two DFT matmul stages on the MXU.
+    """:func:`forward_spectrum` as two DFT matmul stages.
 
     Four-step N = m1*m2 decomposition (64x64 for the flagship 4096): view
     each block as an [m1, m2] matrix, DFT the columns (one rr matmul with
-    contraction 2*m1 = 128 — an exact MXU tile), twiddle, DFT the rows
-    (second rr matmul, with the output fftshift folded into the matrix as
-    column signs plus the 1/N scale), then transpose-and-flatten. Both
-    matmuls run at Precision.HIGH (bf16x3): measured rel-RMS vs the FFT
-    lowering ~3e-7.
+    contraction 2*m1), twiddle, DFT the rows (second rr matmul, with the
+    output fftshift folded into the matrix as column signs plus the 1/N
+    scale), then transpose-and-flatten. Both matmuls run at
+    :data:`DFT_PRECISION`.
     """
     n = blocks.shape[-1]
     m1, m2, w1, tr, ti, e2 = _four_step_matrices(n)
     lead = blocks.shape[:-1]
     z = blocks.reshape(lead + (m1, m2))
-    dot = functools.partial(
-        jnp.matmul, precision=jax.lax.Precision.HIGH,
-        preferred_element_type=jnp.float32,
-    )
-    # stage 1: FFT over n1 (sublane axis) — left rr matmul
+    dot = dft_matmul
+    # stage 1: FFT over n1 — left rr matmul
     x_ri = jnp.concatenate(
         [jnp.real(z), jnp.imag(z)], axis=-2
     )  # [..., 2*m1, m2]
@@ -128,7 +140,7 @@ def forward_spectrum_mxu(blocks: jax.Array) -> jax.Array:
     tij = jnp.asarray(ti)
     zr = yr * trj - yi * tij
     zi = yr * tij + yi * trj
-    # stage 2: FFT over n2 (lane axis) — right rr matmul, shift/scale folded
+    # stage 2: FFT over n2 — right rr matmul, shift/scale folded
     z_ri = jnp.concatenate([zr, zi], axis=-1)  # [..., m1, 2*m2]
     o_ri = dot(z_ri, jnp.asarray(e2))
     x_mat = jax.lax.complex(o_ri[..., :m2], o_ri[..., m2:])  # [k1, k2]
@@ -194,9 +206,8 @@ def _rr_idft_matrix(
     ``[zr zi] @ M == [yr yi]`` for ``y[m] = gain * l * ifft(z)[m]``
     (times ``(-1)^m`` when ``signs``), output columns restricted to
     ``m in [keep_from, l)``. One real matmul replaces the four of the
-    classic split-complex formulation — at l=64 the matrix is exactly one
-    128x128 MXU tile — and trimming the overlap prefix plus folding the
-    gain happen for free in the constant matrix.
+    classic split-complex formulation, and trimming the overlap prefix
+    plus folding the gain happen for free in the constant matrix.
 
     ``pairs`` interleaves the output columns (re0, im0, re1, im1, ...) so
     the matmul result bit-casts straight into the float32 ``[..., k, 2]``
@@ -229,17 +240,10 @@ def _rr_matmul(z: jax.Array, mat_np, pairs: bool = False) -> jax.Array:
 
     Returns complex [..., k], or float32 [..., k, 2] pairs when ``pairs``
     (the matrix must then be column-interleaved — see _rr_idft_matrix).
-
-    Precision.HIGH (bf16x3 passes) holds f32-level accuracy for these
-    unit-magnitude DFT matrices (measured rel-RMS ~1e-5 on the flagship
-    workload) at half the MXU passes of HIGHEST; DEFAULT (single bf16
-    pass) costs ~40 dB of output SNR and is not acceptable."""
+    Runs at :data:`DFT_PRECISION`."""
     mat = jnp.asarray(mat_np)
     zri = jnp.concatenate([jnp.real(z), jnp.imag(z)], axis=-1)
-    yri = jnp.matmul(
-        zri, mat, precision=jax.lax.Precision.HIGH,
-        preferred_element_type=jnp.float32,
-    )
+    yri = dft_matmul(zri, mat)
     kept = mat.shape[1] // 2
     if pairs:
         return yri.reshape(*yri.shape[:-1], kept, 2)
@@ -249,12 +253,9 @@ def _rr_matmul(z: jax.Array, mat_np, pairs: bool = False) -> jax.Array:
 def subband_ifft_mxu(
     z: jax.Array, keep_from: int = 0, gain: float = 1.0, pairs: bool = False
 ) -> jax.Array:
-    """MXU matmul-DFT variant of :func:`subband_ifft`: the w<=512 subband
-    inverse transforms are one real matmul against a constant
-    real-representation DFT matrix — moving them from the VPU FFT
-    custom-call onto the systolic array (the ``use_mxu_fft`` config knob,
-    ON by default: measured ~40% faster than the FFT lowering on the
-    flagship workload).
+    """Matmul-DFT variant of :func:`subband_ifft`: the subband inverse
+    transforms are one real matmul against a constant real-representation
+    DFT matrix (the ``use_mxu_fft`` config knob).
 
     Extensions over :func:`subband_ifft`'s contract: only output samples
     ``[keep_from, l)`` are computed (the caller's overlap trim, folded
@@ -270,7 +271,7 @@ def subband_ifft_mxu(
 def interp_subband_ifft_mxu(
     z_pad: jax.Array, w_max: int, pairs: bool = False
 ) -> jax.Array:
-    """MXU matmul-DFT variant of :func:`interp_subband_ifft`
+    """Matmul-DFT variant of :func:`interp_subband_ifft`
     (same contract; ``pairs`` as in :func:`subband_ifft_mxu`)."""
     del w_max  # fixed by the last axis, kept for API symmetry
     return _rr_matmul(
@@ -285,8 +286,8 @@ def interp_subband_ifft(z_pad: jax.Array, w_max: int) -> jax.Array:
     Sampling identity: a W-point unnormalized IFFT of the ZERO-PADDED slice,
     read at stride q = W/w, equals the w-point unnormalized IFFT —
     ``p[m*q] == w * ifft_w(z)[m]`` — so variable widths need no comb
-    upsampling (``comb_subband_ifft``'s traced-index gather is a slow path
-    on TPU) and no data-dependent shapes. The consumer (host emitter)
+    upsampling (no traced-index gather as in ``comb_subband_ifft``) and no
+    data-dependent shapes. The consumer (host emitter)
     strides by q and applies the fftshift sign compensation
     ``(-1)^m`` (see fdc_tpu/runtime/emission.py), both free on host.
 

@@ -70,8 +70,7 @@ def frame_blocks(x: jax.Array, hist: jax.Array, blocksize: int):
     if ovllen <= inplen:
         # Fast path (any relinvovl >= 2): each block's history prefix is the
         # tail of the previous block's input run, so framing is pure layout —
-        # reshape + two concats, no gather (TPU gathers of [B, N] element
-        # indices are orders of magnitude slower than copies).
+        # reshape + two concats, no gather.
         xr = x.reshape(nblocks, inplen)
         tails = xr[:, inplen - ovllen:]  # [B, ovllen]
         prev = jnp.concatenate([hist[None], tails[:-1]], axis=0)

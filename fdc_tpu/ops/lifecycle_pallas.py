@@ -1,30 +1,38 @@
-"""Pallas TPU kernels for the sequential detection state machines.
+"""Pallas kernels (Triton route) for the sequential detection automata.
 
-The detection slot lifecycle (match candidates -> refresh/age -> solve new
-channel geometry -> allocate slots -> retire) is inherently sequential over
-blocks but operates on tiny vectors ([S] slots, [K] candidates). As a
-`lax.scan` it costs ~8.6 us/block on TPU — per-op overhead, not compute.
-This kernel runs the whole batch's lifecycle in ONE kernel invocation with
-all state resident in VMEM/registers, identical semantics to
-``SegmentDetector.scan_slots``'s scan body (reference behavior:
-lib/SegmentDetection_impl.cc:195-344).
+The detection slot lifecycle (match candidates -> refresh/age -> allocate
+slots -> retire) and the burst hysteresis automaton are serial over blocks
+but work on tiny vectors ([S] slots, [K] candidates, [C] burst channels).
+As a ``lax.scan`` every block is one while-loop iteration that launches the
+body's fusions, so a 512-block batch pays thousands of kernel launches.
+These kernels walk the whole batch inside ONE launch instead, with
+identical semantics to ``SegmentDetector.scan_slots``'s scan body
+(reference behavior: lib/SegmentDetection_impl.cc:195-344) and
+``PowerActivationBank.scan_flags`` (lib/PowerActivationChannel_impl.cc:
+286-306).
 
-Layout notes (TPU): slot state lives as [1, S] ROWS (lane dimension) and
-candidates as [K, 1] columns; their broadcasts form the [K, S] match matrix
-directly, and per-block flags are written as direct [1, S] row stores into
-the [B, S] outputs. This orientation exists because Mosaic only allows
-dynamic indices on the SUBLANE dim: with [S, 1] column state (the first
-design), every flag write needed an [S, S] identity-matmul transpose — four
-MXU round-trips per block on the kernel's serial chain. Rotated, only the
-candidate vectors need a transpose, and all seven (bins, validity, and the
-pre-computed geometry) are packed into ONE [1, 7K] row so it costs a single
-selection matmul per block — and because valid candidates arrive compacted
-to the pack front, that matmul (and the whole candidate side of the body)
-is statically TIERED by the block's actual valid count, so exact all-edges
-detection (max_candidates=0) does not pay K-proportional work on
-one-carrier blocks. All "gather by index" steps are masked sums (each
-assignment matrix row/column has at most one hit), so the kernel needs no
-gathers or sorts.
+Layout: one program per independent automaton. Segments are independent
+(the reference runs one std::thread per segment,
+lib/activity_detection_channelizer_vcm_impl.cc:293-304), so ``G`` segments
+run as ``G`` programs of one kernel, each on its own SM. Every program
+carries its slot table in registers through a ``fori_loop`` over blocks,
+loads its own candidate rows and per-block counts from global memory, and
+works on power-of-two padded tiles: candidates [Kp], slots [Sp], the match
+matrix [Kp, Sp]. Padded candidate columns are invalid; padded slot lanes
+enter as tombstones, so they are neither live nor free and never allocate.
+
+Two closed forms shorten the serial chain on any machine:
+
+- a CHUNK of blocks with no valid candidate is closed form (idle, or
+  aging of live slots: a slot entering with age a0 retires at in-chunk
+  block max(delay - a0, 0)), one [chunk, Sp] tile store per chunk;
+- inside a walked chunk, a block without candidates takes the aging-only
+  body (no match matrix, no allocation).
+
+Candidates arrive PRE-ACCEPTED with their new-channel geometry
+PRE-COMPUTED (``SegmentDetector._packed_candidates``): both are slot-table
+independent and batch over [B, K] outside the kernel. Running the greedy
+acceptance on the serial chain would cost B*K steps instead of K.
 """
 
 from __future__ import annotations
@@ -33,1276 +41,328 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-__all__ = ["slot_lifecycle", "slot_lifecycle_multi", "powact_flags"]
+__all__ = [
+    "resolve_backend",
+    "slot_lifecycle",
+    "slot_lifecycle_multi",
+    "powact_flags",
+]
 
-# Measurement-only hook (tools/ablate33_tpu.py): when True at TRACE time,
-# slot_lifecycle_multi replaces the pallas_call with shape-matched
-# constant outputs while keeping ALL wrapper glue (state pack/unpack,
-# nv/tier/chunk inputs) — isolating kernel launch+execution cost from
-# the glue around it. Never set in production.
-_STUB_KERNEL = False
+_BIG = 2**30
+_N_STATE = 10  # active, tomb, det_start, det_stop, ext_start, wlog2,
+#                phase, phase_inc, inactive, order
 
-_BIG = np.int32(2**30)  # plain scalar: jnp constants can't be kernel-captured
-_SUPER = 4  # chunks per hierarchical idle/age super-region
+
+def resolve_backend(requested: str) -> str:
+    """Resolve a ``lifecycle_backend`` setting to the implementation that
+    runs: ``"auto"`` maps the default JAX platform to the kernel on the
+    GPU and to the ``lax.scan`` reference on the CPU; any other platform
+    raises. Explicit values (``"scan"``, ``"pallas"``, and the test-only
+    ``"pallas_interpret"``) pass through unchanged."""
+    if requested != "auto":
+        return requested
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
+        return "scan"
+    raise RuntimeError(
+        f"no lifecycle backend for platform {platform!r} (gpu or cpu)"
+    )
+
+
+def _pow2(n: int, floor: int = 16) -> int:
+    return max(floor, 1 << max(0, int(n) - 1).bit_length())
+
+
+def _num_warps(elems: int) -> int:
+    # the [Kp, Sp] match matrix is the largest per-block tile; a warp
+    # holds 32 lanes, so tiny tables want one warp (less cross-warp
+    # reduction traffic on the serial chain)
+    return max(1, min(8, elems // 1024))
+
+
+def _age_closed(st, rows: int, delay, r):
+    """Closed-form aging over ``rows`` candidate-free blocks.
+
+    A live slot entering with age a0 is aged first, then emitted when its
+    age exceeds ``delay``: it retires at in-run block j* = max(delay - a0,
+    0), processes the blocks before it, and advances its phase once per
+    processed block. Returns (flags [4 x [rows, Sp]], new state tuple)."""
+    active, tomb, ds, de, es, wl, phase0, pinc, a0, order = st
+    sp = active.shape[0]
+    live0 = (active != 0) & (tomb == 0)
+    jstar = jnp.maximum(delay - a0, 0)
+    j = jax.lax.broadcasted_iota(jnp.int32, (rows, sp), 0)
+    processed = live0[None, :] & (j < jstar[None, :])
+    emit = live0[None, :] & (j == jstar[None, :])
+    phase_used = jnp.where(
+        live0[None, :],
+        (phase0[None, :] + jnp.minimum(j, jstar[None, :]) * pinc[None, :])
+        % r,
+        phase0[None, :],
+    )
+    got = jnp.zeros((rows, sp), jnp.int32)
+    n_steps = jnp.minimum(jstar, rows)
+    tomb = jnp.where(live0 & (jstar < rows), 1, tomb)
+    phase = jnp.where(live0, (phase0 + n_steps * pinc) % r, phase0)
+    inactive = jnp.where(live0, a0 + jnp.minimum(jstar + 1, rows), a0)
+    flags = (got, processed.astype(jnp.int32), emit.astype(jnp.int32),
+             phase_used)
+    new = (active, tomb, ds, de, es, wl, phase, pinc, inactive, order)
+    return flags, new
 
 
 def _lifecycle_kernel(
-    *refs,
-    n_blocks: int,
-    n_cands: tuple,
-    rs: tuple,
-    delays: tuple,
-    chunk: int,
-    ladders: tuple,
-    pa_r: int = None,
+    cand_ref, nv_ref, cwork_ref, par_ref, st_ref, cnt_ref,
+    o_st_ref, o_cnt_ref, o_flag_ref,
+    *, n_blocks: int, chunk: int,
 ):
-    """G-segment fused lifecycle kernel.
-
-    Segments are independent automata (the reference runs one std::thread
-    per segment, lib/activity_detection_channelizer_vcm_impl.cc:293-304);
-    fusing them into ONE kernel invocation puts all G per-block bodies on
-    a single serial fori_loop chain where their mutually independent
-    vector ops overlap (ILP), instead of G back-to-back latency-bound
-    kernels. G == 1 reproduces the original single-segment kernel
-    byte-for-byte in behavior (same op sequence per segment).
-
-    TIERING: candidate packs arrive with valid candidates COMPACTED to
-    the front (SegmentDetector._packed_candidates), so a block whose
-    valid-candidate count is nv only needs the first nv candidate
-    columns — candidates beyond nv are invalid and contribute nothing
-    anywhere. ``ladders`` gives each segment a static ascending ladder
-    of candidate widths (last entry = K_g); per block the caller
-    provides a tier index t such that ladder_g[t] >= nv_g for every
-    segment, and the body/probe run statically specialized at
-    k_eff = ladder_g[t]. This keeps exact all-edges detection
-    (max_candidates=0) from paying the full-K body on every
-    candidate-bearing block: the usual one-or-two-carrier block runs the
-    smallest tier regardless of K.
-
-    Ref layout (G = len(n_cands)): inputs are G candidate packs [B, 7K_g]
-    (VMEM), G per-block valid-candidate counts [B] (SMEM), G per-chunk
-    max counts (SMEM), G per-chunk gap-safe probe flags (SMEM — the
-    refresh-only closed form's prefilter), G per-chunk work-block counts
-    and G per-chunk first-work-block indices (SMEM — the single-event
-    closed form's dispatch), the per-block tier index [B] and per-chunk
-    tier index (SMEM, global across segments), G state packs [10, S_g]
-    (VMEM), one counters vector [3G] (SMEM: alloc/dropped/n_live per
-    segment); outputs are G state packs, the counters vector, then
-    G x 4 flag arrays grouped by flag kind.
-    """
-    g_n = len(n_cands)
-    n_tiers = len(ladders[0])
-    cand_refs = refs[0:g_n]
-    # The many tiny per-block/per-chunk scalar tables travel as TWO flat
-    # SMEM operands (every XLA operand of the pallas custom-call costs a
-    # copy/bitcast at the call boundary; with 6 tables x G segments the
-    # operand glue was a measurable slice of the scan marginal). The
-    # named views below keep every read site written against the
-    # logical tables.
-    blk_tab = refs[g_n]        # [(G+1)*B]: per-seg nv counts, tier_blk
-    ck_tab = refs[g_n + 1]     # [(5G+1)*ncp]: cwork|pwork|cnt|evt|swork
-    state_refs = refs[g_n + 2:2 * g_n + 2]  # ... and tier_chunk last
-    counters_ref = refs[2 * g_n + 2]
-    n_in = 2 * g_n + 3
-    ncp = max(n_blocks // chunk, 1) if chunk > 1 else 1
-
-    class _Off:
-        """Scalar view of a flat SMEM table at a fixed offset."""
-
-        def __init__(self, ref, off):
-            self.ref, self.off = ref, off
-
-        def __getitem__(self, i):
-            return self.ref[self.off + i]
-
-    work_refs = [_Off(blk_tab, g * n_blocks) for g in range(g_n)]
-    tier_blk_ref = _Off(blk_tab, g_n * n_blocks)
-    cwork_refs = [_Off(ck_tab, g * ncp) for g in range(g_n)]
-    pwork_refs = [_Off(ck_tab, (g_n + g) * ncp) for g in range(g_n)]
-    cnt_refs = [_Off(ck_tab, (2 * g_n + g) * ncp) for g in range(g_n)]
-    evt_refs = [_Off(ck_tab, (3 * g_n + g) * ncp) for g in range(g_n)]
-    swork_refs = [_Off(ck_tab, (4 * g_n + g) * ncp) for g in range(g_n)]
-    tier_chunk_ref = _Off(ck_tab, 5 * g_n * ncp)
-    if pa_r is not None:
-        # fused powact automaton (see the epilogue below): ratio edges,
-        # per-chunk work flags, [2, C] state rows (active, phase), delta
-        (rup_ref, rdn_ref, pa_cwork_ref, pa_state_ref, pa_delta_ref) = (
-            refs[n_in:n_in + 5]
-        )
-        n_in += 5
-    outs = refs[n_in:]
-    o_states = outs[0:g_n]
-    o_counters = outs[g_n]
-
-    class _Band:
-        """Row-band view of a [4B, S] flag output (kind-major): stores/
-        loads at [kind*B + rows, :]. One output per segment instead of
-        four — each custom-call result is an XLA buffer with copy/
-        bitcast glue at the boundary. Dynamic sublane indices at lane
-        offset 0 are the allowed Mosaic store pattern, and kind*B + i
-        keeps exactly that shape."""
-
-        def __init__(self, ref, base):
-            self.ref, self.base = ref, base
-
-        def _shift(self, idx):
-            rows, cols = idx
-            return (pl.ds(self.base + rows.start, rows.size), cols)
-
-        def __getitem__(self, idx):
-            return self.ref[self._shift(idx)]
-
-        def __setitem__(self, idx, val):
-            self.ref[self._shift(idx)] = val
-
-    f_bands = outs[g_n + 1:2 * g_n + 1]  # [4*B, S] per segment
-    f_gots = [_Band(r, 0) for r in f_bands]
-    f_procs = [_Band(r, n_blocks) for r in f_bands]
-    f_emits = [_Band(r, 2 * n_blocks) for r in f_bands]
-    f_pus = [_Band(r, 3 * n_blocks) for r in f_bands]
-    if pa_r is not None:
-        o_pa_state = outs[2 * g_n + 1]
-        pa_band = outs[2 * g_n + 2]  # [4*B, C]
-        pa_rise = _Band(pa_band, 0)
-        pa_fall = _Band(pa_band, n_blocks)
-        pa_proc = _Band(pa_band, 2 * n_blocks)
-        pa_pu = _Band(pa_band, 3 * n_blocks)
-
-    # Mosaic cannot legalize scf.for with vector loop-carries: the vector
-    # state lives in the output refs (initialized below, mutated per
-    # block); the scalar counters live in the SMEM output ref (so every
-    # pl.when branch below can update them). Each segment's 10 state
-    # vectors share ONE [10, S] ref so a block does a single VMEM read
-    # and write per segment (static sublane slices are free). The four
-    # per-block flags pack into one [4B, S] output along the SUBLANE
-    # axis (kind-major, via _Band): offset-0 dynamic row stores always
-    # lower, while the earlier [B, 4S] LANE-packed attempt failed at
-    # some S ("dynamic store with unaligned indices", observed at
-    # S=128).
-    for g in range(g_n):
-        o_states[g][:] = state_refs[g][:]
-    for j in range(3 * g_n):
-        o_counters[j] = counters_ref[j]
-
-    # loop-invariant constants, deduped across same-shaped segments:
-    # candidate row -> columns needs ONE transpose-by-matmul per block per
-    # segment (Mosaic only allows dynamic indices on the SUBLANE dim, so
-    # the per-block candidate load is a [1, 7K] row; the match matrix
-    # needs [K, 1] columns — static sublane slices of the transposed
-    # pack). A tier at k_eff < K uses a RECTANGULAR [7*k_eff, 7K]
-    # selection matrix that transposes AND compacts the leading k_eff
-    # columns of each of the 7 groups in one matmul — k_eff == K
-    # degenerates to the identity. Values are small ints — exact in f32.
-    # Prefix sums are triangular matmuls (Mosaic has no cumsum primitive).
-    def _iota_mat(n, cmp):
-        return cmp(
-            jax.lax.broadcasted_iota(jnp.int32, (n, n), 0),
-            jax.lax.broadcasted_iota(jnp.int32, (n, n), 1),
-        ).astype(jnp.float32)
-
-    def _sel_mat(k_eff, k_full):
-        a = jax.lax.broadcasted_iota(
-            jnp.int32, (7 * k_eff, 7 * k_full), 0
-        )
-        b = jax.lax.broadcasted_iota(
-            jnp.int32, (7 * k_eff, 7 * k_full), 1
-        )
-        return (b == (a // k_eff) * k_full + a % k_eff).astype(jnp.float32)
-
-    sels, tri_ks, tri_ss = {}, {}, {}
-    for g in range(g_n):
-        k_full = n_cands[g]
-        for k in set(ladders[g]):
-            if (k, k_full) not in sels:
-                sels[(k, k_full)] = _sel_mat(k, k_full)
-            if k not in tri_ks:
-                tri_ks[k] = _iota_mat(k, lambda a, b: b <= a)  # b<=a
-        s = state_refs[g].shape[1]
-        if s not in tri_ss:
-            tri_ss[s] = _iota_mat(s, lambda a, b: a <= b)  # tri_s[a,b]=a<=b
-
-    # refresh-only closed-chunk constants (chunk > 1): per-delay banded
-    # window matrices (band[j, i] = j-delay <= i <= j, so band @ R counts
-    # refreshes in each block's look-back window) and the suffix-any
-    # matrix (suf[j, i] = i >= j, so suf @ R counts refreshes at or after
-    # each block — the trailing no-refresh run is its zero count)
-    bands, suf_mat = {}, None
-    if chunk > 1:
-        jj = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 0)
-        ii = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 1)
-        suf_mat = (ii >= jj).astype(jnp.float32)
-        for d in set(delays):
-            bands[d] = ((ii <= jj) & (ii >= jj - d)).astype(jnp.float32)
-
-    def body(i, _):
-        # Multi-segment blocks take ONE global 2-way branch: if no
-        # segment has a candidate or a live slot the block is an all-idle
-        # store; otherwise EVERY segment runs its full body BRANCHLESS —
-        # _lifecycle_block with no valid candidates degenerates exactly
-        # to aging/retiring (the match matrix is all-false), so the full
-        # body is always correct, and one straight-line region per block
-        # lets Mosaic schedule the G segments' mutually independent
-        # vector ops together. pl.when regions are scheduling barriers:
-        # the per-segment branchy variant measured only ~6% under 4
-        # back-to-back kernels, fully-branchless measured busy scans
-        # 0.82 -> 0.62 ms but noise-candidate-riddled sparse steps 0.97
-        # -> 1.36 ms; this hybrid keeps both (tools/ablate24_tpu.py).
-        if g_n > 1:
-            row = pl.ds(i, 1)
-            any_act = (work_refs[0][i] != 0) | (o_counters[2] > 0)
-            for g in range(1, g_n):
-                any_act = any_act | (work_refs[g][i] != 0) | (
-                    o_counters[3 * g + 2] > 0
-                )
-
-            @pl.when(jnp.logical_not(any_act))
-            def _all_idle():
-                for g in range(g_n):
-                    s_dim = state_refs[g].shape[1]
-                    z = jnp.zeros((1, s_dim), jnp.int32)
-                    f_gots[g][row, :] = z
-                    f_procs[g][row, :] = z
-                    f_emits[g][row, :] = z
-                    f_pus[g][row, :] = o_states[g][6:7, :]
-
-            # tier dispatch: one branch per ladder level; every segment
-            # runs its full body branchless at this tier's k_eff (see the
-            # hybrid note above — per-segment branches forfeit the
-            # cross-segment ILP, tier branches are mutually exclusive)
-            for t in range(n_tiers):
-                cond_t = any_act & (tier_blk_ref[i] == t)
-                if t == n_tiers - 1:
-                    cond_t = any_act & (tier_blk_ref[i] >= t)
-
-                @pl.when(cond_t)
-                def _all_full(t=t):
-                    for g in range(g_n):
-                        _lifecycle_block(g, i, ladders[g][t])
-            return 0
-        # Single segment: per-block 3-way branch. Idle fast path: a block
-        # with no valid candidates and no live slots cannot change any
-        # state — its whole lifecycle is "store four trivial flag rows".
-        # In steady state (sparse carriers, the common case) this removes
-        # nearly the entire per-block serial chain, the same way the
-        # reference's per-block loop does no channel work when nothing is
-        # detected or active (lib/SegmentDetection_impl.cc:163-176,346-365).
-        row = pl.ds(i, 1)
-        for g in range(g_n):
-            s_dim = state_refs[g].shape[1]
-            has_cand = work_refs[g][i] != 0
-            live_in = o_counters[3 * g + 2] > 0
-
-            @pl.when(jnp.logical_not(has_cand | live_in))
-            def _idle(g=g, s_dim=s_dim):
-                z = jnp.zeros((1, s_dim), jnp.int32)
-                f_gots[g][row, :] = z
-                f_procs[g][row, :] = z
-                f_emits[g][row, :] = z
-                f_pus[g][row, :] = o_states[g][6:7, :]  # phase
-
-            @pl.when(jnp.logical_not(has_cand) & live_in)
-            def _age_only(g=g, s_dim=s_dim):
-                # live slots but no candidates this block: the full body
-                # degenerates to aging + retiring (no match matrix, no
-                # candidate unpack matmul, no allocation ranking) —
-                # exactly _lifecycle_block with every candidate invalid.
-                # This is the common busy case on sparse streams: one
-                # live carrier makes every block "busy" for its dwell.
-                delay, r = delays[g], rs[g]
-                st = o_states[g][:]
-                active = st[0:1, :] != 0
-                tomb = st[1:2, :] != 0
-                phase = st[6:7, :]
-                phase_inc = st[7:8, :]
-                inactive = st[8:9, :]
-                live = active & ~tomb
-                inactive = jnp.where(live, inactive + 1, inactive)
-                emit_now = live & (inactive > delay)
-                tomb = tomb | emit_now
-                processed = live & ~emit_now
-                f_gots[g][row, :] = jnp.zeros((1, s_dim), jnp.int32)
-                f_procs[g][row, :] = processed.astype(jnp.int32)
-                f_emits[g][row, :] = emit_now.astype(jnp.int32)
-                f_pus[g][row, :] = phase
-                phase = jnp.where(
-                    processed, (phase + phase_inc) % r, phase
-                )
-                o_states[g][1:2, :] = tomb.astype(jnp.int32)
-                o_states[g][6:7, :] = phase
-                o_states[g][8:9, :] = inactive
-                o_counters[3 * g + 2] = jnp.sum(processed.astype(jnp.int32))
-
-            for t in range(n_tiers):
-                cond_t = has_cand & (tier_blk_ref[i] == t)
-                if t == n_tiers - 1:
-                    cond_t = has_cand & (tier_blk_ref[i] >= t)
-
-                @pl.when(cond_t)
-                def _full(g=g, t=t):
-                    _lifecycle_block(g, i, ladders[g][t])
-        return 0
-
-    def _idle_seg(g, rows, n_rows=chunk):
-        s_dim = state_refs[g].shape[1]
-        z = jnp.zeros((n_rows, s_dim), jnp.int32)
-        f_gots[g][rows, :] = z
-        f_procs[g][rows, :] = z
-        f_emits[g][rows, :] = z
-        f_pus[g][rows, :] = jnp.broadcast_to(
-            o_states[g][6:7, :], (n_rows, s_dim)
-        )
-
-    def _age_seg(g, rows, n_rows=chunk):
-        # Candidate-free run with live slots: aging is CLOSED FORM. A
-        # live slot entering with age a0 retires at in-run block
-        # j* = max(delay - a0, 0) (aged first, then emit when age >
-        # delay), processes blocks j < j*, and advances its phase once
-        # per processed block — all per-block flags and the end-of-run
-        # state are computable vectorized for ANY static run length
-        # (per chunk, or per SUPER-chunk via the hierarchical skip), so
-        # a carrier's dwell costs one serial iteration per run instead
-        # of one per block.
-        s_dim = state_refs[g].shape[1]
-        delay, r = delays[g], rs[g]
-        st = o_states[g][:]
-        active = st[0:1, :] != 0
-        tomb = st[1:2, :] != 0
-        phase0 = st[6:7, :]
-        phase_inc = st[7:8, :]
-        a0 = st[8:9, :]
-        live0 = active & ~tomb  # [1, S]
-        jstar = jnp.maximum(delay - a0, 0)  # [1, S]
-
-        j = jax.lax.broadcasted_iota(jnp.int32, (n_rows, s_dim), 0)
-        processed = live0 & (j < jstar)  # [n_rows, S]
-        emit = live0 & (j == jstar)
-        phase_used = jnp.where(
-            live0,
-            (phase0 + jnp.minimum(j, jstar) * phase_inc) % r,
-            phase0,
-        )
-        f_gots[g][rows, :] = jnp.zeros((n_rows, s_dim), jnp.int32)
-        f_procs[g][rows, :] = processed.astype(jnp.int32)
-        f_emits[g][rows, :] = emit.astype(jnp.int32)
-        f_pus[g][rows, :] = phase_used
-
-        retires = live0 & (jstar < n_rows)
-        n_steps = jnp.minimum(jstar, n_rows)  # processed blocks
-        o_states[g][1:2, :] = (tomb | retires).astype(jnp.int32)
-        o_states[g][6:7, :] = jnp.where(
-            live0, (phase0 + n_steps * phase_inc) % r, phase0
-        )
-        o_states[g][8:9, :] = jnp.where(
-            live0, a0 + jnp.minimum(jstar + 1, n_rows), a0
-        )
-        o_counters[3 * g + 2] = jnp.sum(
-            (live0 & (jstar >= n_rows)).astype(jnp.int32)
-        )
-
-    def _age_window(g, rows, lo, hi):
-        """_age_seg restricted to the in-chunk block window [lo, hi)
-        (traced scalars; empty windows are exact no-ops). Flag rows
-        OUTSIDE the window are preserved via read-modify-write — the
-        single-event path writes the pre window first (other rows
-        garbage), the event body overwrites its row, and the post window
-        preserves both."""
-        s_dim = state_refs[g].shape[1]
-        delay, r = delays[g], rs[g]
-        st = o_states[g][:]
-        active = st[0:1, :] != 0
-        tomb = st[1:2, :] != 0
-        phase0 = st[6:7, :]
-        phase_inc = st[7:8, :]
-        a0 = st[8:9, :]
-        live0 = active & ~tomb  # [1, S]
-        jstar = jnp.maximum(delay - a0, 0)  # [1, S]
-        w_len = hi - lo  # scalar window length (>= 0)
-
-        j = jax.lax.broadcasted_iota(jnp.int32, (chunk, s_dim), 0)
-        w = (j >= lo) & (j < hi)  # [chunk, S] window mask
-        m = j - lo  # local offset inside the window
-        processed = live0 & w & (m < jstar)
-        emit = live0 & w & (m == jstar)
-        phase_used = jnp.where(
-            live0,
-            (phase0 + jnp.minimum(m, jstar) * phase_inc) % r,
-            phase0,
-        )
-        f_gots[g][rows, :] = jnp.where(w, 0, f_gots[g][rows, :])
-        f_procs[g][rows, :] = jnp.where(
-            w, processed.astype(jnp.int32), f_procs[g][rows, :]
-        )
-        f_emits[g][rows, :] = jnp.where(
-            w, emit.astype(jnp.int32), f_emits[g][rows, :]
-        )
-        f_pus[g][rows, :] = jnp.where(w, phase_used, f_pus[g][rows, :])
-
-        retires = live0 & (jstar < w_len)
-        n_steps = jnp.minimum(jstar, w_len)
-        o_states[g][1:2, :] = (tomb | retires).astype(jnp.int32)
-        o_states[g][6:7, :] = jnp.where(
-            live0, (phase0 + n_steps * phase_inc) % r, phase0
-        )
-        o_states[g][8:9, :] = jnp.where(
-            live0, a0 + jnp.minimum(jstar + 1, w_len), a0
-        )
-        o_counters[3 * g + 2] = jnp.sum(
-            (live0 & (jstar >= w_len)).astype(jnp.int32)
-        )
-
-    def _single_event_seg(g, c, rows):
-        """Chunk with EXACTLY ONE candidate-bearing block (local index e
-        from the precomputed SMEM table): closed-form aging before the
-        event, the full per-block body at the event, closed-form aging
-        after — no per-block walk. This is the quiet-stream common case
-        (an isolated detection, or noise tripping one block), which the
-        gap prefilter would otherwise send through a whole-chunk walk."""
-        e = evt_refs[g][c]
-        gi = c * chunk + e  # global block index of the event
-        _age_window(g, rows, 0, e)
-        for t in range(n_tiers):
-            cond_t = tier_blk_ref[gi] == t
-            if t == n_tiers - 1:
-                cond_t = tier_blk_ref[gi] >= t
-
-            @pl.when(cond_t)
-            def _evt(g=g, t=t, gi=gi):
-                _lifecycle_block(g, gi, ladders[g][t])
-        _age_window(g, rows, e + 1, chunk)
-
-    def _refresh_info(g, rows, k_eff):
-        """Refresh matrix of a candidate-bearing chunk under the CURRENT
-        (chunk-constant) slot table, plus the fall-back predicate.
-
-        Candidate matching is per-block independent given a constant
-        table, so the whole chunk's first-match-consumes pass batches as
-        a static K-loop of [chunk, S] vector ops (reference semantics:
-        lib/SegmentDetection_impl.cc:246-288 per block). ``k_eff`` bounds
-        the loop: valid candidates are compacted to the pack front, so a
-        tier with k_eff >= the chunk's max valid count is exact — the
-        skipped columns are invalid everywhere in the chunk. Returns
-        (refreshed [chunk, S] bool, bad scalar) where ``bad`` is True if
-        the chunk has ANY structural event — an unconsumed valid
-        candidate (allocation/drop) or an in-chunk retirement — in which
-        case the caller must walk the chunk per block.
-
-        Retirement test, exact: a live slot emits at in-chunk block j
-        iff its age exceeds delay there, i.e. no refresh in the look-back
-        window [j-delay, j] (banded matmul) AND j + a0 + 1 > delay (the
-        virtual pre-chunk refresh at index -(a0+1); for j > delay the
-        conjunct is vacuously true).
-        """
-        k = n_cands[g]
-        delay = delays[g]
-        s_dim = state_refs[g].shape[1]
-        st = o_states[g][:]
-        active = st[0:1, :] != 0
-        tomb = st[1:2, :] != 0
-        det_start = st[2:3, :]
-        det_stop = st[3:4, :]
-        a0 = st[8:9, :]
-        order = st[9:10, :]
-        live = active & ~tomb  # [1, S]
-
-        cpack = cand_refs[g][rows, :]  # [chunk, 7K]
-        refreshed = jnp.zeros((chunk, s_dim), jnp.int32) != 0
-        unconsumed = jnp.zeros((), jnp.int32) != 0
-        for kk in range(k_eff):
-            cs_k = cpack[:, kk:kk + 1]                  # [chunk, 1]
-            ce_k = cpack[:, k + kk:k + kk + 1]
-            v_k = cpack[:, 2 * k + kk:2 * k + kk + 1] != 0
-            m_k = (
-                live & v_k & (cs_k < det_stop) & (ce_k >= det_start)
-            )  # [chunk, S]
-            consumed_k = jnp.any(m_k, axis=1, keepdims=True)  # [chunk, 1]
-            unconsumed = unconsumed | jnp.any(v_k & ~consumed_k)
-            order_m = jnp.where(m_k, order, _BIG)
-            min_o = jnp.min(order_m, axis=1, keepdims=True)  # [chunk, 1]
-            refreshed = refreshed | (m_k & (order == min_o))
-
-        rf = refreshed.astype(jnp.float32)
-        recent = jax.lax.dot_general(
-            bands[delay], rf, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [chunk, S] refresh count in each block's look-back window
-        jcol = jax.lax.broadcasted_iota(jnp.int32, (chunk, s_dim), 0)
-        retire = live & (recent == 0.0) & (jcol + a0 + 1 > delay)
-        bad = unconsumed | jnp.any(retire)
-        return refreshed, bad
-
-    def _refresh_seg(g, rows, refreshed):
-        """Apply a refresh-only chunk in closed form: no allocation, no
-        retirement (guaranteed by _refresh_info's predicate), so flags
-        are got=0 / emit=0 / processed=live / phase trajectory, and the
-        only state changes are the phase advance and the age counters
-        (trailing no-refresh run per slot). ``refreshed`` is the probe's
-        [chunk, S] matrix, captured as a value — not recomputed."""
-        r = rs[g]
-        s_dim = state_refs[g].shape[1]
-        st = o_states[g][:]
-        active = st[0:1, :] != 0
-        tomb = st[1:2, :] != 0
-        phase0 = st[6:7, :]
-        phase_inc = st[7:8, :]
-        a0 = st[8:9, :]
-        live = active & ~tomb
-
-        j = jax.lax.broadcasted_iota(jnp.int32, (chunk, s_dim), 0)
-        z = jnp.zeros((chunk, s_dim), jnp.int32)
-        f_gots[g][rows, :] = z
-        f_emits[g][rows, :] = z
-        f_procs[g][rows, :] = jnp.broadcast_to(
-            live.astype(jnp.int32), (chunk, s_dim)
-        )
-        f_pus[g][rows, :] = jnp.where(
-            live, (phase0 + j * phase_inc) % r, phase0
-        )
-        o_states[g][6:7, :] = jnp.where(
-            live, (phase0 + chunk * phase_inc) % r, phase0
-        )
-        # end-of-chunk age = trailing no-refresh run (suffix-any matmul);
-        # with no refresh at all it extends the incoming age instead
-        suffix_refs = jax.lax.dot_general(
-            suf_mat, refreshed.astype(jnp.float32),
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [chunk, S] refresh count at or after each block
-        trailing = jnp.sum(
-            (suffix_refs == 0.0).astype(jnp.float32), axis=0, keepdims=True
-        ).astype(jnp.int32)  # [1, S]
-        any_ref = jnp.any(refreshed, axis=0, keepdims=True)
-        o_states[g][8:9, :] = jnp.where(
-            live, trailing + jnp.where(any_ref, 0, a0), a0
-        )
-        # live count unchanged (no allocation, no retirement)
-
-    def chunk_body(c, _):
-        # Chunked fast paths. A chunk of blocks with no valid candidates
-        # anywhere is closed form per segment (idle store, or closed-form
-        # aging when slots are live — sound because live slots only
-        # appear via an allocation, which needs a candidate). A chunk
-        # WITH candidates is still closed form when every segment's
-        # candidates only REFRESH existing slots (all consumed, no
-        # retirement: the steady busy case — a dwelling carrier re-detects
-        # every block): the first-match pass batches over the chunk under
-        # the chunk-constant table (_refresh_info). Only chunks with a
-        # STRUCTURAL event (allocation, drop, retirement) walk per block
-        # — the per-block branches of `body` keep those exact.
-        any_work = cwork_refs[0][c] != 0
-        for g in range(1, g_n):
-            any_work = any_work | (cwork_refs[g][c] != 0)
-        rows = pl.ds(c * chunk, chunk)
-
-        @pl.when(jnp.logical_not(any_work))
-        def _closed_chunk():
-            for g in range(g_n):
-                live_in = o_counters[3 * g + 2] > 0
-
-                @pl.when(jnp.logical_not(live_in))
-                def _idle(g=g):
-                    _idle_seg(g, rows)
-
-                @pl.when(live_in)
-                def _age(g=g):
-                    _age_seg(g, rows)
-
-        # single-event closed form: every segment has at most one
-        # candidate-bearing block in the chunk (and at least one has
-        # exactly one, else the chunk is candidate-free) — each segment
-        # runs age-closed-form / event body / age-closed-form instead of
-        # a whole-chunk per-block walk. The quiet-stream common case.
-        single_ok = jnp.zeros((), jnp.int32) == 0  # True
-        for g in range(g_n):
-            single_ok = single_ok & (cnt_refs[g][c] <= 1)
-
-        @pl.when(any_work & single_ok)
-        def _single_chunk():
-            for g in range(g_n):
-                live_in = o_counters[3 * g + 2] > 0
-
-                @pl.when(cnt_refs[g][c] == 1)
-                def _one(g=g):
-                    _single_event_seg(g, c, rows)
-
-                @pl.when((cnt_refs[g][c] == 0) & live_in)
-                def _age(g=g):
-                    _age_seg(g, rows)
-
-                @pl.when((cnt_refs[g][c] == 0)
-                         & jnp.logical_not(live_in))
-                def _idle(g=g):
-                    _idle_seg(g, rows)
-
-        # prefilter (SMEM scalars only, computed batched OUTSIDE the
-        # kernel): a has-work chunk whose candidate-free run exceeds
-        # delay is PROVABLY ineligible — any live slot ages past delay
-        # during the gap (no candidate ⇒ no refresh), and without live
-        # slots the candidates are unconsumed. Such chunks walk directly,
-        # so the probe's vector work is never spent on churny workloads
-        # (the Bernoulli-toggle bound measured a 2x scan REGRESSION with
-        # an unconditional probe).
-        hint = jnp.zeros((), jnp.int32) == 0  # True
-        for g in range(g_n):
-            hint = hint & (
-                (cwork_refs[g][c] == 0) | (pwork_refs[g][c] != 0)
-            )
-        multi = any_work & jnp.logical_not(single_ok)
-
-        @pl.when(multi & jnp.logical_not(hint))
-        def _walk_direct():
-            jax.lax.fori_loop(c * chunk, (c + 1) * chunk, body, 0)
-
-        # probe tiers (see the kernel docstring): k_eff per segment from
-        # the per-chunk tier index — the probe's K-loop shrinks to the
-        # chunk's actual candidate population, which is what makes the
-        # refresh-only closed form pay off at pod-scale K
-        for t in range(n_tiers):
-            cond_t = multi & hint & (tier_chunk_ref[c] == t)
-            if t == n_tiers - 1:
-                cond_t = multi & hint & (tier_chunk_ref[c] >= t)
-
-            @pl.when(cond_t)
-            def _busy_chunk(t=t):
-                # probe every segment (values — captured by the apply
-                # branch below, no recompute); bads of no-work segments
-                # are ignored
-                infos = [
-                    _refresh_info(g, rows, ladders[g][t])
-                    for g in range(g_n)
-                ]
-                ok = jnp.zeros((), jnp.int32) == 0  # True
-                for g in range(g_n):
-                    has_w = cwork_refs[g][c] != 0
-                    ok = ok & (
-                        jnp.logical_not(has_w)
-                        | jnp.logical_not(infos[g][1])
-                    )
-
-                @pl.when(ok)
-                def _all_closed():
-                    for g in range(g_n):
-                        has_w = cwork_refs[g][c] != 0
-                        live_in = o_counters[3 * g + 2] > 0
-
-                        @pl.when(has_w)
-                        def _refresh(g=g):
-                            _refresh_seg(g, rows, infos[g][0])
-
-                        @pl.when(jnp.logical_not(has_w)
-                                 & jnp.logical_not(live_in))
-                        def _idle(g=g):
-                            _idle_seg(g, rows)
-
-                        @pl.when(jnp.logical_not(has_w) & live_in)
-                        def _age(g=g):
-                            _age_seg(g, rows)
-
-                @pl.when(jnp.logical_not(ok))
-                def _walk():
-                    jax.lax.fori_loop(
-                        c * chunk, (c + 1) * chunk, body, 0
-                    )
-        return 0
-
-    def _lifecycle_block(g, i, k_eff):
-        """One block's full lifecycle for segment g, statically
-        specialized at k_eff candidate columns (exact whenever k_eff >=
-        the block's valid count — compaction puts valid first, and every
-        candidate op below is masked by c_v)."""
-        delay, r = delays[g], rs[g]
-        sel_p = sels[(k_eff, n_cands[g])]
-        tri_k = tri_ks[k_eff]
-        tri_s = tri_ss[state_refs[g].shape[1]]
-        alloc_counter = o_counters[3 * g + 0]
-        dropped = o_counters[3 * g + 1]
-        st = o_states[g][:]  # [10, S], one read per block
-        active = st[0:1, :] != 0
-        tomb = st[1:2, :] != 0
-        det_start = st[2:3, :]
-        det_stop = st[3:4, :]
-        ext_start = st[4:5, :]
-        wlog2 = st[5:6, :]
-        phase = st[6:7, :]
-        phase_inc = st[7:8, :]
-        inactive = st[8:9, :]
-        order = st[9:10, :]
-
-        pack = jax.lax.dot_general(
-            sel_p, cand_refs[g][pl.ds(i, 1), :].astype(jnp.float32),
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)  # [7*k_eff, 1], groups compacted to k_eff
-        k = k_eff
-        cs = pack[0 * k:1 * k, :]          # [K, 1] int32 (bin coords)
-        ce = pack[1 * k:2 * k, :]
-        c_v = pack[2 * k:3 * k, :] != 0    # [K, 1] bool
-        wl2 = pack[3 * k:4 * k, :]         # precomputed geometry
-        es = pack[4 * k:5 * k, :]          # (candidate_geometry, batched
-        es_mod_r = pack[5 * k:6 * k, :]    #  outside the kernel)
-        too_big = pack[6 * k:7 * k, :] != 0
-
-        live = active & ~tomb  # [1, S]
-
-        # -- matching (reference: lib/SegmentDetection_impl.cc:246-288) -----
-        m = live & c_v & (cs < det_stop) & (ce >= det_start)  # [K, S]
-        order_m = jnp.where(m, order, _BIG)  # [K, S]
-        min_order = jnp.min(order_m, axis=1, keepdims=True)  # [K, 1]
-        consumed = jnp.any(m, axis=1, keepdims=True)  # [K, 1]
-        refreshed = jnp.any(
-            m & (order == min_order), axis=0, keepdims=True
-        )  # [1, S]
-        inactive = jnp.where(
-            live, jnp.where(refreshed, 0, inactive + 1), inactive
-        )
-
-        # new-channel geometry arrives precomputed (it is slot-table
-        # independent; computing it here would sit on the serial chain)
-        new_mask = c_v & ~consumed
+    """One program = one segment's slot lifecycle over the whole batch.
+
+    Refs: cand [G, B, 7, Kp] (cand_start, cand_end, valid, wlog2,
+    ext_start, ext_start % r, too_big per block, valid-first), nv [G, B]
+    valid-candidate counts, cwork [G, n_chunks] per-chunk max counts,
+    par [G, 2] (r, delay), state [G, 10, Sp], counters [G, 2]
+    (alloc_counter, dropped). Outputs: state, counters, and one
+    [G, 4, B, Sp] flag tensor (got, processed, emit, phase_used)."""
+    g = pl.program_id(0)
+    r = par_ref[g, 0]
+    delay = par_ref[g, 1]
+
+    def put_row(i, flags):
+        for kind in range(4):
+            o_flag_ref[g, kind, i, :] = flags[kind]
+
+    def block_age(i, st):
+        active, tomb, ds, de, es, wl, phase, pinc, inact, order = st
+        live = (active != 0) & (tomb == 0)
+        inact = jnp.where(live, inact + 1, inact)
+        emit = live & (inact > delay)
+        processed = live & ~emit
+        put_row(i, (jnp.zeros_like(active), processed.astype(jnp.int32),
+                    emit.astype(jnp.int32), phase))
+        tomb = jnp.where(emit, 1, tomb)
+        phase = jnp.where(processed, (phase + pinc) % r, phase)
+        return (active, tomb, ds, de, es, wl, phase, pinc, inact, order)
+
+    def block_full(i, st, cnt):
+        active, tomb, ds, de, es_s, wl_s, phase, pinc, inact, order = st
+        alloc, dropped = cnt
+        cs = cand_ref[g, i, 0, :]  # [Kp] bin coords
+        ce = cand_ref[g, i, 1, :]
+        cv = cand_ref[g, i, 2, :] != 0
+        wl2 = cand_ref[g, i, 3, :]
+        es = cand_ref[g, i, 4, :]
+        esr = cand_ref[g, i, 5, :]
+        too_big = cand_ref[g, i, 6, :] != 0
+
+        live = (active != 0) & (tomb == 0)
+        # matching, first-match-consumes in activation order
+        # (reference: lib/SegmentDetection_impl.cc:246-288); live slots
+        # hold distinct orders, so "order == min" picks the one slot
+        m = (
+            live[None, :] & cv[:, None]
+            & (cs[:, None] < de[None, :]) & (ce[:, None] >= ds[None, :])
+        )  # [Kp, Sp]
+        min_order = jnp.min(jnp.where(m, order[None, :], _BIG), axis=1)
+        consumed = min_order < _BIG  # [Kp]
+        hit = m & (order[None, :] == min_order[:, None])
+        refreshed = jnp.max(hit.astype(jnp.int32), axis=0) > 0  # [Sp]
+        inact = jnp.where(live, jnp.where(refreshed, 0, inact + 1), inact)
+
+        # allocation: free slots in index order x new candidates in
+        # acceptance order; masked sums instead of gathers
+        new_mask = cv & ~consumed
         new_ok = new_mask & ~too_big
+        free = (active == 0) & (tomb == 0)
+        new_i = new_ok.astype(jnp.int32)
+        free_i = free.astype(jnp.int32)
+        rank = jnp.cumsum(new_i) - 1  # [Kp]
+        free_rank = jnp.cumsum(free_i) - 1  # [Sp]
+        a_i = (
+            free[None, :] & new_ok[:, None]
+            & (free_rank[None, :] == rank[:, None])
+        ).astype(jnp.int32)  # [Kp, Sp], at most one hit per row/column
+        got = jnp.max(a_i, axis=0) > 0
 
-        # -- allocation: free slots in index order x accepted candidates in
-        # strength order; masked sums instead of gathers ---------------------
-        free = ~active & ~tomb  # [1, S]
-        new_ok_i = new_ok.astype(jnp.int32)
-        rank = jax.lax.dot_general(
-            tri_k, new_ok.astype(jnp.float32),
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32) - 1  # [K, 1]: accepted candidates before each
-        free_rank = jnp.dot(
-            free.astype(jnp.float32), tri_s,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32) - 1  # [1, S]: free slots at or before each
-        assign = free & new_ok & (free_rank == rank)  # [K, S]
-        got = jnp.any(assign, axis=0, keepdims=True)  # [1, S]
-        a_i = assign.astype(jnp.int32)
+        def pick(arr_k, cur):
+            return jnp.where(got, jnp.sum(a_i * arr_k[:, None], axis=0), cur)
 
-        def pick(arr_k, current):
-            # at most one hit per column -> masked sum == gathered value
-            v = jnp.sum(a_i * arr_k, axis=0, keepdims=True)
-            return jnp.where(got, v, current)
-
-        n_free = jnp.sum(free.astype(jnp.int32))
-        n_new = jnp.sum(new_ok_i)
-        n_alloc = jnp.minimum(n_new, n_free)
+        n_alloc = jnp.minimum(jnp.sum(new_i), jnp.sum(free_i))
         dropped = (
-            dropped
-            + (n_new - n_alloc)
+            dropped + (jnp.sum(new_i) - n_alloc)
             + jnp.sum((new_mask & too_big).astype(jnp.int32))
         )
+        active = jnp.where(got, 1, active)
+        ds = pick(cs, ds)
+        de = pick(ce, de)
+        es_s = pick(es, es_s)
+        wl_s = pick(wl2, wl_s)
+        pinc = pick(esr, pinc)
+        inact = jnp.where(got, 0, inact)
+        order = jnp.where(got, alloc + jnp.sum(a_i * rank[:, None], axis=0),
+                          order)
+        alloc = alloc + n_alloc
 
-        active = active | got
-        det_start = pick(cs, det_start)
-        det_stop = pick(ce, det_stop)
-        ext_start = pick(es, ext_start)
-        wlog2 = pick(wl2, wlog2)
-        phase_inc = pick(es_mod_r, phase_inc)
-        inactive = jnp.where(got, 0, inactive)
-        order = jnp.where(
-            got, alloc_counter + jnp.sum(a_i * rank, axis=0, keepdims=True),
-            order,
-        )
-        alloc_counter = alloc_counter + n_alloc
-
-        # -- processing / retiring flags ------------------------------------
-        live = active & ~tomb
-        emit_now = live & ~got & (inactive > delay)
-        tomb = tomb | emit_now
-        processed = live & ~emit_now
-        phase_used = jnp.where(got, phase_inc, phase)
+        # processing / retiring flags for this block
+        live = (active != 0) & (tomb == 0)
+        emit = live & ~got & (inact > delay)
+        processed = live & ~emit
+        put_row(i, (got.astype(jnp.int32), processed.astype(jnp.int32),
+                    emit.astype(jnp.int32), jnp.where(got, pinc, phase)))
+        tomb = jnp.where(emit, 1, tomb)
         phase = jnp.where(
-            got,
-            (2 * phase_inc) % r,
-            jnp.where(processed, (phase + phase_inc) % r, phase),
+            got, (2 * pinc) % r,
+            jnp.where(processed, (phase + pinc) % r, phase),
+        )
+        st = (active, tomb, ds, de, es_s, wl_s, phase, pinc, inact, order)
+        return st, (alloc, dropped)
+
+    def walk(i, carry):
+        return jax.lax.cond(
+            nv_ref[g, i] > 0,
+            lambda c: block_full(i, *c),
+            lambda c: (block_age(i, c[0]), c[1]),
+            carry,
         )
 
-        # offset-0 dynamic row stores (see the output-splitting note above);
-        # the read side still benefits from the single packed [10, S] load
-        row = pl.ds(i, 1)
-        f_gots[g][row, :] = got.astype(jnp.int32)
-        f_procs[g][row, :] = processed.astype(jnp.int32)
-        f_emits[g][row, :] = emit_now.astype(jnp.int32)
-        f_pus[g][row, :] = phase_used
+    carry = (
+        tuple(st_ref[g, j, :] for j in range(_N_STATE)),
+        (cnt_ref[g, 0], cnt_ref[g, 1]),
+    )
 
-        o_states[g][0:1, :] = active.astype(jnp.int32)
-        o_states[g][1:2, :] = tomb.astype(jnp.int32)
-        o_states[g][2:3, :] = det_start
-        o_states[g][3:4, :] = det_stop
-        o_states[g][4:5, :] = ext_start
-        o_states[g][5:6, :] = wlog2
-        o_states[g][6:7, :] = phase
-        o_states[g][7:8, :] = phase_inc
-        o_states[g][8:9, :] = inactive
-        o_states[g][9:10, :] = order
-        o_counters[3 * g + 0] = alloc_counter
-        o_counters[3 * g + 1] = dropped
-        # live slots after this block == processed (live & ~emit_now,
-        # which includes freshly-allocated ones)
-        o_counters[3 * g + 2] = jnp.sum(processed.astype(jnp.int32))
+    if chunk > 1:
+        def chunk_body(c, carry):
+            def closed(carry):
+                flags, st = _age_closed(carry[0], chunk, delay, r)
+                for kind in range(4):
+                    o_flag_ref[g, kind, pl.ds(c * chunk, chunk), :] = (
+                        flags[kind]
+                    )
+                return st, carry[1]
 
-    n_chunks = n_blocks // chunk if chunk > 1 else 0
-    super_n = _SUPER if (chunk > 1 and n_chunks % _SUPER == 0
-                         and n_chunks >= 2 * _SUPER) else 1
-    if chunk > 1 and super_n > 1:
-        # hierarchical idle/age skip: a run of SUPER work-free chunks is
-        # ONE closed-form region (the helpers are length-generic), so a
-        # quiet batch costs n_chunks/SUPER serial iterations instead of
-        # n_chunks — the chunk loop's branch+store overhead was a
-        # measurable slice of the scan stage on quiet streams
-        def super_body(sc, _):
-            no_work = jnp.zeros((), jnp.int32) == 0  # True
-            for g in range(g_n):
-                no_work = no_work & (swork_refs[g][sc] == 0)
-            rows = pl.ds(sc * super_n * chunk, super_n * chunk)
-
-            @pl.when(no_work)
-            def _closed():
-                for g in range(g_n):
-                    live_in = o_counters[3 * g + 2] > 0
-
-                    @pl.when(live_in)
-                    def _age(g=g):
-                        _age_seg(g, rows, n_rows=super_n * chunk)
-
-                    @pl.when(jnp.logical_not(live_in))
-                    def _idle(g=g):
-                        _idle_seg(g, rows, n_rows=super_n * chunk)
-
-            @pl.when(jnp.logical_not(no_work))
-            def _sub():
-                jax.lax.fori_loop(
-                    sc * super_n, (sc + 1) * super_n, chunk_body, 0
+            def walked(carry):
+                return jax.lax.fori_loop(
+                    c * chunk, (c + 1) * chunk, walk, carry
                 )
-            return 0
 
-        jax.lax.fori_loop(0, n_chunks // super_n, super_body, 0)
-    elif chunk > 1:
-        jax.lax.fori_loop(0, n_chunks, chunk_body, 0)
+            return jax.lax.cond(cwork_ref[g, c] > 0, walked, closed, carry)
+
+        carry = jax.lax.fori_loop(0, n_blocks // chunk, chunk_body, carry)
     else:
-        jax.lax.fori_loop(0, n_blocks, body, 0)
+        carry = jax.lax.fori_loop(0, n_blocks, walk, carry)
 
-    # -- step-end tombstone recycling (SegmentDetector._free_tombstones):
-    # emitted slots stay tombstoned for the whole batch (per-step-constant
-    # geometry for the batched extraction), then free HERE — saving the
-    # post-kernel fusion the host-side version cost. Geometry rows are
-    # left in place for the emitters' slot_meta reads.
-    for g in range(g_n):
-        act = o_states[g][0:1, :]
-        tmb = o_states[g][1:2, :]
-        o_states[g][0:1, :] = jnp.where(tmb != 0, 0, act)
-        o_states[g][1:2, :] = jnp.zeros_like(tmb)
-
-    # -- fused powact hysteresis automaton (identical op sequence to
-    # _powact_kernel): an independent automaton, so it simply runs after
-    # the segments' chain inside the SAME kernel invocation — one launch
-    # + one wrapper instead of two (the scans marginal was launch/glue
-    # dominated, tools/ablate28_tpu.py).
-    if pa_r is not None:
-        delta = pa_delta_ref[:]  # [1, C]
-        c_dim = delta.shape[1]
-        o_pa_state[:] = pa_state_ref[:]
-
-        def pa_body(i, _):
-            pa_active = o_pa_state[0:1, :] != 0
-            pa_phase = o_pa_state[1:2, :]
-            rise = ~pa_active & (rup_ref[pl.ds(i, 1), :] != 0)
-            fall = pa_active & (rdn_ref[pl.ds(i, 1), :] != 0)
-            processed = rise | pa_active
-            phase_used = jnp.where(rise, delta, pa_phase)
-            pa_phase = jnp.where(
-                rise,
-                (2 * delta) % pa_r,
-                jnp.where(processed, (pa_phase + delta) % pa_r, pa_phase),
-            )
-            pa_active = (pa_active | rise) & ~fall
-
-            row = pl.ds(i, 1)
-            pa_rise[row, :] = rise.astype(jnp.int32)
-            pa_fall[row, :] = fall.astype(jnp.int32)
-            pa_proc[row, :] = processed.astype(jnp.int32)
-            pa_pu[row, :] = phase_used
-            o_pa_state[0:1, :] = pa_active.astype(jnp.int32)
-            o_pa_state[1:2, :] = pa_phase
-            return 0
-
-        def pa_chunk(c, _):
-            rows = pl.ds(c * chunk, chunk)
-
-            @pl.when(pa_cwork_ref[c] == 0)
-            def _quiet():
-                # no edges in the chunk: activity constant, every active
-                # channel processes every block, phase += delta per block
-                pa_active = o_pa_state[0:1, :] != 0
-                phase0 = o_pa_state[1:2, :]
-                j = jax.lax.broadcasted_iota(jnp.int32, (chunk, c_dim), 0)
-                z = jnp.zeros((chunk, c_dim), jnp.int32)
-                pa_rise[rows, :] = z
-                pa_fall[rows, :] = z
-                pa_proc[rows, :] = jnp.broadcast_to(
-                    pa_active.astype(jnp.int32), (chunk, c_dim)
-                )
-                pa_pu[rows, :] = jnp.where(
-                    pa_active, (phase0 + j * delta) % pa_r, phase0
-                )
-                o_pa_state[1:2, :] = jnp.where(
-                    pa_active, (phase0 + chunk * delta) % pa_r, phase0
-                )
-
-            @pl.when(pa_cwork_ref[c] != 0)
-            def _edges():
-                jax.lax.fori_loop(c * chunk, (c + 1) * chunk, pa_body, 0)
-            return 0
-
-        if chunk > 1:
-            jax.lax.fori_loop(0, n_blocks // chunk, pa_chunk, 0)
-        else:
-            jax.lax.fori_loop(0, n_blocks, pa_body, 0)
+    st, (alloc, dropped) = carry
+    # step-end tombstone recycling (SegmentDetector._free_tombstones):
+    # emitted slots stay tombstoned for the whole batch, then free here;
+    # their geometry rows stay for the emitters' slot_meta reads
+    active = jnp.where(st[1] != 0, 0, st[0])
+    out = (active, jnp.zeros_like(st[1])) + tuple(st[2:])
+    for j in range(_N_STATE):
+        o_st_ref[g, j, :] = out[j]
+    o_cnt_ref[g, 0] = alloc
+    o_cnt_ref[g, 1] = dropped
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_cands", "rs", "delays", "chunk", "interpret",
-                     "pa_r", "pa_thresh"),
+    static_argnames=("n_cands", "rs", "delays", "chunk", "interpret"),
 )
 def slot_lifecycle_multi(
-    cands, states,
-    *, n_cands, rs, delays, chunk=32, interpret=False,
-    powact=None, pa_r=None, pa_thresh=None,
+    cands, states, *, n_cands, rs, delays, chunk=32, interpret=False,
 ):
-    """Run G segments' slot lifecycles over a batch in ONE kernel.
-
-    All segments advance block-by-block on a single serial chain; their
-    per-block bodies are mutually independent so the latency-bound vector
-    ops overlap — fusing G segments costs ~1 chain instead of G
-    (reference runs one std::thread per segment,
-    lib/activity_detection_channelizer_vcm_impl.cc:293-304).
-
-    NOTE: candidates arrive PRE-ACCEPTED (detect_candidates) with their
-    new-channel geometry PRE-COMPUTED (candidate_geometry) — both are
-    slot-table independent, so they batch over [B, K] outside the kernel
-    instead of sitting on its serial per-block chain. (Running the greedy
-    overlap rejection inside the kernel was tried and measured SLOWER,
-    +0.5 ms/step at B=512, K=8: outside, the K-step accept scan is
-    vectorized over all B blocks — serial length K, not B*K.)
+    """Run G segments' slot lifecycles over a batch, one program each.
 
     Args:
       cands: tuple of G [B, 7K_g] int32 arrays — per block the
         concatenation of (cand_start_bin, cand_end_bin, valid, wlog2,
-        ext_start, ext_start % r, too_big), each [K_g], in that order,
-        with VALID CANDIDATES COMPACTED TO THE FRONT of each group
-        (SegmentDetector._packed_candidates does this; the kernel's tier
-        dispatch relies on it — an uncompacted pack whose valid count
-        undercounts trailing valid columns would silently drop them).
+        ext_start, ext_start % r, too_big), each [K_g], in that order
+        (``SegmentDetector._packed_candidates``).
       states: tuple of G SegmentDetector slot-table dicts (init_state).
       n_cands/rs/delays: per-segment static config tuples.
+      chunk: blocks per closed-form chunk (1 = walk every block; batches
+        whose length is not a multiple fall back to 1).
       interpret: run in interpreter mode (CPU testing).
-      powact: optional dict {powers [B, C] f32, lastpower [C], active [C]
-        bool, phase [C] i32, delta [C] i32} — fuses the burst hysteresis
-        automaton (PowerActivationBank.scan_flags semantics) into the
-        SAME kernel invocation as a final independent chain; requires the
-        static pa_r (relinvovl) and pa_thresh (linear threshold). One
-        launch instead of two — the scan stage is launch/glue dominated
-        (tools/ablate28_tpu.py).
 
-    Tombstoned (emitted) slots are FREED in-kernel at step end — returned
-    states match SegmentDetector._free_tombstones applied to the raw scan
-    result (idempotent with the host-side version).
+    Tombstoned (emitted) slots are FREED at step end — returned states
+    match SegmentDetector._free_tombstones applied to the raw scan result.
 
     Returns a tuple of G (new_state, (got, processed, emit, phase_used))
     pairs, flags [B, S_g] (scan-order layout, same as the lax.scan path).
-    With ``powact``, returns (that tuple, (pa_new_state, pa_flags)) where
-    pa_flags are [C, B] like powact_flags.
     """
     g_n = len(cands)
     nb = cands[0].shape[0]
     ss = tuple(st["active"].shape[0] for st in states)
-
-    # per-block valid-candidate COUNTS feed the kernel's idle fast paths
-    # and the tier dispatch (all computed batched/off-chain here).
-    # Valid candidates are compacted to the pack front
-    # (SegmentDetector._packed_candidates), so a tier whose k_eff covers
-    # the count is exact.
-    cands = tuple(c.astype(jnp.int32) for c in cands)
-    nvs = tuple(
-        jnp.sum((c[:, 2 * k:3 * k] != 0).astype(jnp.int32), axis=1)
-        for c, k in zip(cands, n_cands)
-    )  # each [B]
-    has_works = tuple((nv > 0).astype(jnp.int32) for nv in nvs)
-
-    # static tier ladders: ascending candidate widths per segment, last
-    # entry = K_g; all ladders padded to equal length (repeat K_g).
-    # The middle tiers matter at pod shapes: a 4-carriers-per-segment
-    # dwell (cfg5b busy) probes at k_eff=8 instead of 16 with the 8-tier
-    # present (tools/ablate32_tpu.py B_busy).
-    base_tiers = (2, 8, 16)
-    ladders = [
-        [t for t in base_tiers if t < k] + [k] for k in n_cands
-    ]
-    n_tiers = max(len(lad) for lad in ladders)
-    ladders = tuple(
-        tuple(lad + [lad[-1]] * (n_tiers - len(lad))) for lad in ladders
-    )
-    # per-block tier index: smallest t with ladder_g[t] >= nv_g for
-    # every segment (= max over segments of each one's first-fit index)
-    tier_blk = jnp.zeros((nb,), jnp.int32)
-    for nv, lad in zip(nvs, ladders):
-        idx = jnp.zeros((nb,), jnp.int32)
-        for t in range(n_tiers - 1):
-            idx = idx + (nv > lad[t]).astype(jnp.int32)
-        tier_blk = jnp.maximum(tier_blk, idx)
-
+    kp = _pow2(max(n_cands))
+    sp = _pow2(max(ss))
     if nb % chunk != 0:
-        chunk = 1  # odd batch sizes fall back to the per-block loop
-    if chunk > 1:
-        chunk_works = tuple(
-            jnp.max(nv.reshape(-1, chunk), axis=1) for nv in nvs
-        )
-        tier_chunk = jnp.max(tier_blk.reshape(-1, chunk), axis=1)
-        # single-event dispatch tables: per chunk, the number of
-        # candidate-bearing blocks and the first one's local index
-        cnt_works = tuple(
-            jnp.sum(hw.reshape(-1, chunk), axis=1) for hw in has_works
-        )
-        evt_idxs = tuple(
-            jnp.argmax(hw.reshape(-1, chunk), axis=1).astype(jnp.int32)
-            for hw in has_works
-        )
-        n_chunks = nb // chunk
-        if n_chunks % _SUPER == 0 and n_chunks >= 2 * _SUPER:
-            sworks = tuple(
-                jnp.max(cw.reshape(-1, _SUPER), axis=1)
-                for cw in chunk_works
-            )
-        else:
-            sworks = chunk_works  # super loop disabled; keeps the arity
+        chunk = 1
 
-        def _gap_ok(hw, delay):
-            # per chunk: every in-chunk candidate-free run <= delay
-            # (⟺ every full window of delay+1 blocks has a candidate).
-            # Table-independent prefilter for the kernel's refresh-only
-            # closed form: a longer gap PROVES a structural event.
-            w = hw.reshape(-1, chunk)
-            if delay + 1 >= chunk:
-                return jnp.ones((w.shape[0],), jnp.int32)
-            # triangular matmul instead of cumsum (reduce-window breaks
-            # the surrounding fusion; same exactness argument as the
-            # kernel's in-VMEM prefix matmuls)
-            tri = (
-                jnp.arange(chunk, dtype=jnp.int32)[:, None]
-                <= jnp.arange(chunk, dtype=jnp.int32)[None, :]
-            ).astype(jnp.float32)
-            cs = jnp.dot(
-                w.astype(jnp.float32), tri,
-                preferred_element_type=jnp.float32,
-            ).astype(w.dtype)  # inclusive prefix counts
-            hi = cs[:, delay:]  # counts through block j, j >= delay
-            lo = jnp.concatenate(
-                [jnp.zeros((w.shape[0], 1), cs.dtype),
-                 cs[:, :chunk - delay - 1]],
-                axis=1,
-            )  # counts through block j - delay - 1
-            win = hi - lo  # candidates in [j-delay, j]
-            return jnp.all(win > 0, axis=1).astype(jnp.int32)
+    packs, nvs = [], []
+    for c, k in zip(cands, n_cands):
+        c = c.astype(jnp.int32).reshape(nb, 7, k)
+        nvs.append(jnp.sum((c[:, 2, :] != 0).astype(jnp.int32), axis=1))
+        packs.append(jnp.pad(c, ((0, 0), (0, 0), (0, kp - k))))
+    pack = jnp.stack(packs)  # [G, B, 7, Kp]
+    nv = jnp.stack(nvs)  # [G, B]
+    n_chunks = nb // chunk if chunk > 1 else 1
+    cwork = jnp.max(nv.reshape(g_n, n_chunks, -1), axis=2)  # [G, n_chunks]
 
-        probe_works = tuple(
-            _gap_ok(hw, d) for hw, d in zip(has_works, delays)
-        )
-    else:
-        # chunk == 1: the chunk-path tables are unused by the kernel —
-        # single-entry zeros keep the flat-table layout
-        z1 = (jnp.zeros((1,), jnp.int32),) * g_n
-        chunk_works = probe_works = cnt_works = evt_idxs = sworks = z1
-        tier_chunk = jnp.zeros((1,), jnp.int32)
-
-    state_rows = tuple(
-        jnp.stack(
-            [
-                st["active"].astype(jnp.int32),
-                st["tomb"].astype(jnp.int32),
-                st["det_start"].astype(jnp.int32),
-                st["det_stop"].astype(jnp.int32),
-                st["ext_start"].astype(jnp.int32),
-                st["wlog2"].astype(jnp.int32),
-                st["phase"].astype(jnp.int32),
-                st["phase_inc"].astype(jnp.int32),
-                st["inactive"].astype(jnp.int32),
-                st["order"].astype(jnp.int32),
-            ]
-        )
+    keys = ("active", "tomb", "det_start", "det_stop", "ext_start", "wlog2",
+            "phase", "phase_inc", "inactive", "order")
+    rows = []
+    for st, s in zip(states, ss):
+        m = jnp.stack([st[kk].astype(jnp.int32) for kk in keys])  # [10, S]
+        # padded lanes enter as tombstones: never live, never free
+        pad = jnp.zeros((_N_STATE, sp - s), jnp.int32).at[1].set(1)
+        rows.append(jnp.concatenate([m, pad], axis=1))
+    st_in = jnp.stack(rows)  # [G, 10, Sp]
+    cnt_in = jnp.stack([
+        jnp.stack([jnp.asarray(st["alloc_counter"], jnp.int32),
+                   jnp.asarray(st["dropped"], jnp.int32)])
         for st in states
-    )  # each [10, S_g]
-    counters = []
-    for st in states:
-        counters.append(jnp.asarray(st["alloc_counter"], jnp.int32))
-        counters.append(jnp.asarray(st["dropped"], jnp.int32))
-        counters.append(
-            jnp.sum((st["active"] & ~st["tomb"]).astype(jnp.int32))
-        )
-    # flatten the scalar tables into two SMEM operands (see the kernel's
-    # _Off views; operand order must match its offsets exactly)
-    ncp = max(nb // chunk, 1) if chunk > 1 else 1
+    ])  # [G, 2]
+    par = jnp.asarray([[r, d] for r, d in zip(rs, delays)], jnp.int32)
 
-    def _pad_to(a, ln):
-        a = a.reshape(-1)
-        return a if a.shape[0] == ln else jnp.pad(a, (0, ln - a.shape[0]))
-
-    blk_tab = jnp.concatenate(
-        [nv.astype(jnp.int32) for nv in nvs] + [tier_blk]
-    )
-    ck_tab = jnp.concatenate(
-        [_pad_to(a.astype(jnp.int32), ncp)
-         for a in (list(chunk_works) + list(probe_works)
-                   + list(cnt_works) + list(evt_idxs) + list(sworks))]
-        + [_pad_to(tier_chunk, ncp)]
-    )
-    ins = (
-        cands + (blk_tab, ck_tab) + state_rows + (jnp.stack(counters),)
-    )
-
-    # one [4B, S] kind-major flag band per segment (see _Band)
-    fl = lambda s: jax.ShapeDtypeStruct((4 * nb, s), jnp.int32)
-    out_shape = (
-        tuple(jax.ShapeDtypeStruct((10, s), jnp.int32) for s in ss)
-        + (jax.ShapeDtypeStruct((3 * g_n,), jnp.int32),)
-        + tuple(fl(s) for s in ss)
-    )
-    vm = pl.BlockSpec(memory_space=pltpu.VMEM)
-    sm = pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs = [vm] * g_n + [sm] * 2 + [vm] * g_n + [sm]
-    out_specs = [vm] * g_n + [sm] + [vm] * g_n
-
-    if powact is not None:
-        if pa_r is None or pa_thresh is None:
-            raise ValueError("powact requires static pa_r and pa_thresh")
-        # ratio edges batch-precompute OUTSIDE the kernel, identical to
-        # powact_flags (lastpower is always the previous block's power,
-        # reference: lib/PowerActivationChannel_impl.cc:286-306)
-        pw = powact["powers"].astype(jnp.float32)  # [B, C]
-        c_dim = pw.shape[1]
-        lastp = jnp.concatenate(
-            [powact["lastpower"].astype(jnp.float32)[None, :], pw[:-1]],
-            axis=0,
-        )
-        thr = jnp.float32(pa_thresh)
-        r_up = (pw / lastp >= thr).astype(jnp.int32)
-        r_dn = (lastp / pw >= thr).astype(jnp.int32)
-        if chunk > 1:
-            pa_cwork = jnp.max(
-                jnp.max(r_up | r_dn, axis=1).reshape(-1, chunk), axis=1
-            )
-        else:
-            pa_cwork = jnp.zeros((nb,), jnp.int32)  # unused, keeps arity
-        pa_state_rows = jnp.stack(
-            [
-                powact["active"].astype(jnp.int32),
-                powact["phase"].astype(jnp.int32),
-            ]
-        )  # [2, C]
-        pa_delta = powact["delta"].astype(jnp.int32).reshape(1, c_dim)
-        ins = ins + (r_up, r_dn, pa_cwork, pa_state_rows, pa_delta)
-        in_specs += [vm, vm, sm, vm, vm]
-        out_shape = out_shape + (
-            jax.ShapeDtypeStruct((2, c_dim), jnp.int32),
-            fl(c_dim),  # one [4B, C] kind-major pa flag band
-        )
-        out_specs += [vm] * 2
-
-    kernel = functools.partial(
-        _lifecycle_kernel,
-        n_blocks=nb, n_cands=tuple(n_cands), rs=tuple(rs),
-        delays=tuple(delays), chunk=chunk, ladders=ladders,
-        pa_r=(pa_r if powact is not None else None),
-    )
-
-    # Negative result (round 4, do not re-chase): a batch-level lax.cond
-    # skipping the kernel on fully-idle batches (no candidates, no live
-    # slots, no powact edges) measured -1.3% on the flagship bench: the
-    # noise workload has ~1 candidate-bearing block per 512, so the cond
-    # always takes the kernel branch while its predicate + fusion barrier
-    # cost ~0.013 ms every step.
-    if _STUB_KERNEL:
-        # shape-matched constants that still depend on the real inputs
-        # (sum % 1 == 0, opaque to the compiler) so none of the glue is
-        # dead-code-eliminated
-        probe = sum(jnp.sum(i.astype(jnp.int32)) for i in ins) % jnp.int32(1)
-        outs = tuple(
-            jnp.zeros(s.shape, s.dtype) + probe.astype(s.dtype)
-            for s in out_shape
-        )
-    else:
-        outs = pl.pallas_call(
-            kernel,
-            out_shape=out_shape,
-            in_specs=in_specs,
-            out_specs=tuple(out_specs),
-            interpret=interpret,
-        )(*ins)
-
-    o_states = outs[0:g_n]
-    o_counters = outs[g_n]
-    f_bands = outs[g_n + 1:2 * g_n + 1]  # [4B, S] kind-major per segment
-    f_gots = [b[0:nb] for b in f_bands]
-    f_procs = [b[nb:2 * nb] for b in f_bands]
-    f_emits = [b[2 * nb:3 * nb] for b in f_bands]
-    f_pus = [b[3 * nb:4 * nb] for b in f_bands]
+    o_st, o_cnt, o_flag = pl.pallas_call(
+        functools.partial(_lifecycle_kernel, n_blocks=nb, chunk=chunk),
+        out_shape=(
+            jax.ShapeDtypeStruct((g_n, _N_STATE, sp), jnp.int32),
+            jax.ShapeDtypeStruct((g_n, 2), jnp.int32),
+            jax.ShapeDtypeStruct((g_n, 4, nb, sp), jnp.int32),
+        ),
+        grid=(g_n,),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=_num_warps(kp * sp), num_stages=1
+        ),
+        interpret=interpret,
+        name="slot_lifecycle",
+    )(pack, nv, cwork, par, st_in, cnt_in)
 
     results = []
-    for g in range(g_n):
-        o_state = o_states[g]
-        new_state = {
-            "active": o_state[0] != 0,
-            "tomb": o_state[1] != 0,
-            "det_start": o_state[2],
-            "det_stop": o_state[3],
-            "ext_start": o_state[4],
-            "wlog2": o_state[5],
-            "phase": o_state[6],
-            "phase_inc": o_state[7],
-            "inactive": o_state[8],
-            "order": o_state[9],
-            "alloc_counter": o_counters[3 * g + 0],
-            "dropped": o_counters[3 * g + 1],
-        }
-        flags = (
-            f_gots[g] != 0,   # [B, S], scan-order layout
-            f_procs[g] != 0,
-            f_emits[g] != 0,
-            f_pus[g],
-        )
-        results.append((new_state, flags))
-    if powact is None:
-        return tuple(results)
-
-    o_pa, pa_band = outs[2 * g_n + 1:]
-    pa_f_rise = pa_band[0:nb]
-    pa_f_fall = pa_band[nb:2 * nb]
-    pa_f_proc = pa_band[2 * nb:3 * nb]
-    pa_f_pu = pa_band[3 * nb:4 * nb]
-    pa_new_state = {
-        "active": o_pa[0] != 0,
-        "lastpower": pw[-1],
-        "phase": o_pa[1],
-    }
-    pa_flags = (
-        (pa_f_rise != 0).T,  # [C, B], same convention as powact_flags
-        (pa_f_fall != 0).T,
-        (pa_f_proc != 0).T,
-        pa_f_pu.T,
-    )
-    return tuple(results), (pa_new_state, pa_flags)
+    for g, s in enumerate(ss):
+        o = o_st[g, :, :s]
+        new_state = {kk: o[j] for j, kk in enumerate(keys)}
+        new_state["active"] = o[0] != 0
+        new_state["tomb"] = o[1] != 0
+        new_state["alloc_counter"] = o_cnt[g, 0]
+        new_state["dropped"] = o_cnt[g, 1]
+        f = o_flag[g, :, :, :s]
+        results.append((new_state, (f[0] != 0, f[1] != 0, f[2] != 0, f[3])))
+    return tuple(results)
 
 
 def slot_lifecycle(
     cand_packed, state,
     *, n_cand, r, delay, chunk=32, interpret=False,
 ):
-    """Single-segment slot lifecycle (see slot_lifecycle_multi; this is
-    the G == 1 case and produces the identical op sequence the original
-    single-segment kernel did)."""
+    """Single-segment slot lifecycle (the G == 1 case of
+    slot_lifecycle_multi)."""
     ((new_state, flags),) = slot_lifecycle_multi(
         (cand_packed,), (state,),
         n_cands=(n_cand,), rs=(r,), delays=(delay,),
@@ -1317,86 +377,69 @@ def slot_lifecycle(
 
 
 def _powact_kernel(
-    rup_ref, rdn_ref, work_ref, active_ref, phase_ref, delta_ref,
-    o_active, o_phase,
-    f_rise, f_fall, f_processed, f_phase_used,
+    rup_ref, rdn_ref, work_ref, st_ref, delta_ref, o_st_ref, o_flag_ref,
     *, n_blocks: int, r: int, chunk: int,
 ):
-    """Chunked hysteresis automaton.
+    """Chunked hysteresis automaton over [Cp] channel lanes.
 
-    The power ratios are batch-precomputed OUTSIDE the kernel (r_up/r_dn
-    [B, C] — ``lastpower`` is always the previous block's power regardless
-    of activity, reference: lib/PowerActivationChannel_impl.cc:286-306, so
-    the ratio tests are block-local), which removes lastpower from the
-    serial chain entirely. A chunk with NO ratio edges anywhere cannot
-    change any channel's activity, so its flags and phase advance are
-    CLOSED FORM (one vectorized store per chunk); only edge-bearing
-    chunks walk the per-block loop. In steady state (hysteresis edges are
-    rare by construction) the serial chain shrinks from n_blocks to
-    n_chunks."""
-    delta = delta_ref[:]  # [1, C]
-    c_dim = delta.shape[1]
+    The power ratios are batch-precomputed outside the kernel (``lastpower``
+    is always the previous block's power regardless of activity,
+    reference: lib/PowerActivationChannel_impl.cc:286-306), so the serial
+    chain only carries (active, phase). A chunk with no ratio edge cannot
+    change any channel's activity: its flags and phase advance are closed
+    form, one tile store per chunk."""
+    delta = delta_ref[0, :]
 
-    # vector state lives in the output refs (scf.for cannot carry vectors)
-    o_active[:] = active_ref[:]
-    o_phase[:] = phase_ref[:]
+    def put(rows, flags):
+        for kind in range(4):
+            o_flag_ref[kind, rows, :] = flags[kind]
 
-    def body(i, _):
-        active = o_active[:] != 0
-        phase = o_phase[:]
-        rise = ~active & (rup_ref[pl.ds(i, 1), :] != 0)
-        fall = active & (rdn_ref[pl.ds(i, 1), :] != 0)
-        processed = rise | active
-        phase_used = jnp.where(rise, delta, phase)
+    def body(i, carry):
+        active, phase = carry
+        rise = (active == 0) & (rup_ref[i, :] != 0)
+        fall = (active != 0) & (rdn_ref[i, :] != 0)
+        processed = rise | (active != 0)
+        put(i, (rise.astype(jnp.int32), fall.astype(jnp.int32),
+                processed.astype(jnp.int32), jnp.where(rise, delta, phase)))
         phase = jnp.where(
-            rise,
-            (2 * delta) % r,
+            rise, (2 * delta) % r,
             jnp.where(processed, (phase + delta) % r, phase),
         )
-        active = (active | rise) & ~fall
+        active = jnp.where((active != 0) | rise, 1, 0)
+        active = jnp.where(fall, 0, active)
+        return active, phase
 
-        row = pl.ds(i, 1)
-        f_rise[row, :] = rise.astype(jnp.int32)
-        f_fall[row, :] = fall.astype(jnp.int32)
-        f_processed[row, :] = processed.astype(jnp.int32)
-        f_phase_used[row, :] = phase_used
-
-        o_active[:] = active.astype(jnp.int32)
-        o_phase[:] = phase
-        return 0
-
-    def chunk_body(c, _):
-        rows = pl.ds(c * chunk, chunk)
-
-        @pl.when(work_ref[c] == 0)
-        def _quiet():
-            # no edges in the chunk: activity is constant, every active
-            # channel processes every block, phase advances delta/block
-            active = o_active[:] != 0  # [1, C]
-            phase0 = o_phase[:]
-            j = jax.lax.broadcasted_iota(jnp.int32, (chunk, c_dim), 0)
-            z = jnp.zeros((chunk, c_dim), jnp.int32)
-            f_rise[rows, :] = z
-            f_fall[rows, :] = z
-            f_processed[rows, :] = jnp.broadcast_to(
-                active.astype(jnp.int32), (chunk, c_dim)
-            )
-            f_phase_used[rows, :] = jnp.where(
-                active, (phase0 + j * delta) % r, phase0
-            )
-            o_phase[:] = jnp.where(
-                active, (phase0 + chunk * delta) % r, phase0
-            )
-
-        @pl.when(work_ref[c] != 0)
-        def _edges():
-            jax.lax.fori_loop(c * chunk, (c + 1) * chunk, body, 0)
-        return 0
-
+    carry = (st_ref[0, :], st_ref[1, :])
     if chunk > 1:
-        jax.lax.fori_loop(0, n_blocks // chunk, chunk_body, 0)
+        def chunk_body(c, carry):
+            def quiet(carry):
+                active, phase0 = carry
+                on = active != 0
+                j = jax.lax.broadcasted_iota(
+                    jnp.int32, (chunk, delta.shape[0]), 0
+                )
+                z = jnp.zeros((chunk, delta.shape[0]), jnp.int32)
+                put(pl.ds(c * chunk, chunk), (
+                    z, z, jnp.broadcast_to(active[None, :], z.shape),
+                    jnp.where(on[None, :],
+                              (phase0[None, :] + j * delta[None, :]) % r,
+                              phase0[None, :]),
+                ))
+                return active, jnp.where(on, (phase0 + chunk * delta) % r,
+                                         phase0)
+
+            def edges(carry):
+                return jax.lax.fori_loop(
+                    c * chunk, (c + 1) * chunk, body, carry
+                )
+
+            return jax.lax.cond(work_ref[c] > 0, edges, quiet, carry)
+
+        carry = jax.lax.fori_loop(0, n_blocks // chunk, chunk_body, carry)
     else:
-        jax.lax.fori_loop(0, n_blocks, body, 0)
+        carry = jax.lax.fori_loop(0, n_blocks, body, carry)
+    o_st_ref[0, :] = carry[0]
+    o_st_ref[1, :] = carry[1]
 
 
 @functools.partial(
@@ -1411,58 +454,48 @@ def powact_flags(powers, state, delta, *, r, thresh, chunk=32,
     (new_state, (rise, fall, processed, phase_used)) with flags [C, B].
     """
     nb, c = powers.shape
+    cp = _pow2(c)
     powers = powers.astype(jnp.float32)
     lastp = jnp.concatenate(
         [state["lastpower"].astype(jnp.float32)[None, :], powers[:-1]],
         axis=0,
     )  # [B, C]: lastpower entering each block
     thr = jnp.float32(thresh)
-    r_up = (powers / lastp >= thr).astype(jnp.int32)
-    r_dn = (lastp / powers >= thr).astype(jnp.int32)
+    lane_pad = ((0, 0), (0, cp - c))
+    r_up = jnp.pad((powers / lastp >= thr).astype(jnp.int32), lane_pad)
+    r_dn = jnp.pad((lastp / powers >= thr).astype(jnp.int32), lane_pad)
     if nb % chunk != 0:
-        chunk = 1  # odd batch sizes fall back to the per-block loop
-    if chunk > 1:
-        work = jnp.max(
-            jnp.max(r_up | r_dn, axis=1).reshape(-1, chunk), axis=1
-        )  # [n_chunks]
-    else:
-        work = jnp.zeros((nb,), jnp.int32)  # unused, keeps the arity
-    row = lambda a, dt: a.astype(dt).reshape(1, c)
-    ins = (
-        r_up,
-        r_dn,
-        work,
-        row(state["active"], jnp.int32),
-        row(state["phase"], jnp.int32),
-        delta.astype(jnp.int32).reshape(1, c),
-    )
-    rc = lambda dt: jax.ShapeDtypeStruct((1, c), dt)
-    fl = lambda dt: jax.ShapeDtypeStruct((nb, c), dt)
-    kernel = functools.partial(
-        _powact_kernel, n_blocks=nb, r=r, chunk=chunk
-    )
-    vm = pl.BlockSpec(memory_space=pltpu.VMEM)
-    sm = pl.BlockSpec(memory_space=pltpu.SMEM)
-    outs = pl.pallas_call(
-        kernel,
+        chunk = 1
+    n_chunks = nb // chunk if chunk > 1 else 1
+    work = jnp.max((r_up | r_dn).reshape(n_chunks, -1), axis=1)
+    st_in = jnp.pad(
+        jnp.stack([state["active"].astype(jnp.int32),
+                   state["phase"].astype(jnp.int32)]),
+        lane_pad,
+    )  # [2, Cp]
+    dl = jnp.pad(delta.astype(jnp.int32).reshape(1, c), lane_pad)
+    o_st, o_flag = pl.pallas_call(
+        functools.partial(_powact_kernel, n_blocks=nb, r=r, chunk=chunk),
         out_shape=(
-            rc(jnp.int32), rc(jnp.int32),
-            fl(jnp.int32), fl(jnp.int32), fl(jnp.int32), fl(jnp.int32),
+            jax.ShapeDtypeStruct((2, cp), jnp.int32),
+            jax.ShapeDtypeStruct((4, nb, cp), jnp.int32),
         ),
-        in_specs=[vm, vm, sm, vm, vm, vm],
-        out_specs=tuple([vm] * 6),
+        grid=(1,),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(*ins)
-    o_active, o_phase, f_rise, f_fall, f_proc, f_pu = outs
+        name="powact_flags",
+    )(r_up, r_dn, work, st_in, dl)
     new_state = {
-        "active": o_active.reshape(c) != 0,
+        "active": o_st[0, :c] != 0,
         "lastpower": powers[-1],
-        "phase": o_phase.reshape(c),
+        "phase": o_st[1, :c],
     }
+    f = o_flag[:, :, :c]
     flags = (
-        (f_rise != 0).T,  # [C, B]
-        (f_fall != 0).T,
-        (f_proc != 0).T,
-        f_pu.T,
+        (f[0] != 0).T,  # [C, B]
+        (f[1] != 0).T,
+        (f[2] != 0).T,
+        f[3].T,
     )
     return new_state, flags

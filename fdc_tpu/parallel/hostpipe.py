@@ -1,5 +1,5 @@
 """Cross-process (multi-host) batch pipeline: the MPMD pipeline's ≥2-host
-leg (VERDICT r4 item 2).
+leg.
 
 The single-process :class:`~fdc_tpu.parallel.pipeline.PipelineChannelizer`
 keeps one scan-owner chain and farms whole batches over local devices.
@@ -38,8 +38,8 @@ owner-local (rare, end-of-stream — correctness over parallelism), and
 ``process_spectra``/checkpointing keep the single-process paths. Use
 jax.distributed + ShardedChannelizer (parallel/multihost.py) when SPMD
 fits the workload instead; this module exists for the shapes where the
-pipeline mechanism is the one that scales (extraction-dominated pod
-configs — see PERFORMANCE.md "Round-4 scaling model").
+pipeline mechanism is the one that scales (extraction-dominated
+configs).
 """
 
 from __future__ import annotations

@@ -37,8 +37,8 @@ def initialize_multihost(
 ) -> int:
     """Initialize jax.distributed (no-op when single-process).
 
-    With no arguments, relies on the cluster environment (TPU pod metadata /
-    SLURM / GKE) exactly like ``jax.distributed.initialize()``. Returns the
+    With no arguments, relies on the cluster environment (SLURM / GKE
+    metadata) exactly like ``jax.distributed.initialize()``. Returns the
     process index.
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:

@@ -96,8 +96,7 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
         # efficiency decays as (A+B+C)/(A+C+W·B); dedicating it costs one
         # device of extraction capacity but removes the scan from every
         # worker's critical path: eff(W) = (W-1)/W · (A+B+C)/(A+C) until
-        # the scan rate 1/B caps throughput (see PERFORMANCE.md
-        # "Pipeline scaling model").
+        # the scan rate 1/B caps throughput.
         # With dedicated_owner and scan_owners > 1, RESERVE that many
         # leading devices as the owner pool so additional scan owners do
         # not land on worker devices (stage-B scans contending with
@@ -207,14 +206,11 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
             x = f2c(xf_extf)
             blocks, _ = frame_blocks(x, f2c(histf), n)
             # FFT the recomputed reach-back block SEPARATELY from the B
-            # body rows: a single [B+1]-row FFT costs +0.090 ms at the
-            # flagship (odd 513-row tiling + downstream slice
-            # re-materialization — tools/ablate29_tpu.py), most of the
-            # pipeline's decomposition overhead. The split keeps the
-            # plain step's even-B FFT shape and lets consumers read
-            # `spec` as the direct FFT output, with spec_ext as a
-            # TPU-free concat (exactly the plain step's form,
-            # models/channelizer.py _device_step).
+            # body rows: the split keeps the plain step's even-B FFT
+            # shape (no odd [B+1]-row transform and slice
+            # re-materialization) and lets consumers read `spec` as the
+            # direct FFT output, with spec_ext as a concat (exactly the
+            # plain step's form, models/channelizer.py _device_step).
             spec0 = forward_spectrum(
                 blocks[:1], use_mxu=cfg.use_mxu_fft
             )  # [1, N]; row 0 == previous batch's last row, recomputed
@@ -274,7 +270,7 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
                 x = f2c(xsf[0])           # [(b_local+1)*inplen]
                 blocks, _ = frame_blocks(x, f2c(histsf[0]), n)
                 # split reach-back FFT, same rationale as pipe_front
-                # (even-b_local FFT tiling; ablate29)
+                # (even-b_local FFT shape)
                 spec0 = forward_spectrum(
                     blocks[:1], use_mxu=cfg.use_mxu_fft
                 )
@@ -392,7 +388,7 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
         measures + candidate packing on this shard's b_local(+1) rows at
         its global block offset. Pass ``spec`` (the direct body-FFT
         output) when available so consumers avoid re-materializing the
-        spec_ext[1:] slice (ablate29)."""
+        spec_ext[1:] slice."""
         cfg = self.config
         if spec is None:
             spec = spec_ext[1:]

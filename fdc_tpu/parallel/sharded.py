@@ -41,11 +41,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 from fdc_tpu.config import ChannelizerConfig
 from fdc_tpu.models.channelizer import FrequencyDomainChannelizer
 from fdc_tpu.models.segment_detection import scan_slots_multi
-from fdc_tpu.models.power_activation import _FLOAT_MIN as _PA_FLOAT_MIN
 from fdc_tpu.ops.extract import (
     apply_phase_pairs,
     extract_bucket,
-    extract_bucket_measured,
     extract_bucket_phased,
 )
 from fdc_tpu.ops.fft import forward_spectrum
@@ -178,14 +176,11 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
         return [a[r * c_loc: (r + 1) * c_loc] for r in range(self.n_chan)]
 
     def _build_sharded_tables(self):
-        # Per-rank tables are STATIC (numpy) so the fused Pallas
-        # extraction engages on the chan axis too (VERDICT r2 item 3):
-        # shard_map traces ONE program for all ranks, so rank-varying
-        # constants are selected with a lax.switch over axis_index — each
-        # branch closes over its rank's concrete arrays (see _rank_call).
-        # The earlier design passed traced per-rank views through the
-        # shard_map in_specs, which forced the slow XLA extraction path
-        # exactly on the axis meant for extraction-heavy configs.
+        # Per-rank tables are STATIC (numpy) so the windows fold into the
+        # DFT matrices on the chan axis too: shard_map traces ONE program
+        # for all ranks, so rank-varying constants are selected with a
+        # lax.switch over axis_index — each branch closes over its rank's
+        # concrete arrays (see _rank_call).
         fused_widths = set(self._fused_widths)
         self._tp_unfused = []  # (bucket, [starts_r], [wins_r])
         if self.throughput:
@@ -205,29 +200,6 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
                     (b, self._split_rows(b.starts),
                      self._split_rows(b.windows))
                 )
-        # The detection power measures can ride the FIRST unfused tp
-        # bucket's fused extraction kernel on every chan rank — but only
-        # when EVERY rank's branch engages: lax.switch branches must agree
-        # on whether a powers leaf exists, and the engagement gate depends
-        # on each rank's (static) window table. Evaluated here at build
-        # time from shapes alone (measured_folded_matrix); if any rank
-        # falls back, all ranks take the XLA measure path so the
-        # replicated detection automata see bit-identical powers.
-        self._meas_all_ranks = False
-        if self._tp_unfused and self._measure_masks is not None:
-            from fdc_tpu.ops.extract import measured_folded_matrix
-
-            bucket, starts_r, wins_r = self._tp_unfused[0]
-            self._meas_all_ranks = self.config.use_mxu_fft and all(
-                measured_folded_matrix(
-                    self.config.blocksize, s, w, bucket.width,
-                    bucket.width - bucket.out_len, float(bucket.width),
-                    self._measure_masks.shape[1],
-                )
-                is not None
-                for s, w in zip(starts_r, wins_r)
-            )
-
         # fused widths: shared tp+pa row family (same trim for equal width);
         # phase_sel = tp start bins for tp rows, 0 for pa rows (rot^0 == 1,
         # the burst emitter applies its phases host-side)
@@ -249,8 +221,8 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
     def _rank_call(self, cidx, per_rank_fns, *operands):
         """Dispatch to this chan rank's closure: a lax.switch over the
         axis index (single direct call on a degenerate axis). Each branch
-        captures its rank's static numpy tables, so trace-time gates
-        (fused Pallas kernels, window folding) see concrete arrays."""
+        captures its rank's static numpy tables, so trace-time window
+        folding sees concrete arrays."""
         if self.n_chan == 1:
             return per_rank_fns[0](*operands)
         return jax.lax.switch(cidx, per_rank_fns, *operands)
@@ -305,7 +277,6 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
         t = t_local0 + jnp.arange(b_local, dtype=jnp.int32)
 
         out = {}
-        powers_fused = None
         if self._tp_unfused:
             # phase folding is shard-safe when every shard's first global
             # block index stays ≡ 0 (mod R): t0 is a whole number of
@@ -313,39 +284,17 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
             # suffices (same contract as the unsharded step)
             fold_phase = b_local % cfg.relinvovl == 0
             mats = []
-            for bi, (bucket, starts_r, wins_r) in enumerate(
-                self._tp_unfused
-            ):
+            for bucket, starts_r, wins_r in self._tp_unfused:
                 l = bucket.width
-                # detection power measures ride the first shared-kernel
-                # bucket's VMEM tiles (same as the plain step). Multi-chan
-                # requires every rank's branch to engage the fused kernel
-                # (checked at build time, _meas_all_ranks) so the
-                # lax.switch branches agree on the powers leaf AND every
-                # rank computes powers through the identical kernel — a
-                # rank-dependent path would let the replicated detection
-                # automata diverge at the ~1e-7 accumulation difference.
-                want_meas = (
-                    fold_phase and bi == 0
-                    and self._measure_masks is not None
-                    and (self.n_chan == 1 or self._meas_all_ranks)
-                )
 
                 def tp_branch(s_np, w_np):
                     def br(sp, tt):
-                        if want_meas:
-                            return extract_bucket_measured(
-                                sp, s_np, w_np, cfg.relinvovl,
-                                self._measure_masks, gain=float(l),
-                                use_mxu=cfg.use_mxu_fft,
-                                keep_from=l - bucket.out_len,
-                            )
                         if fold_phase:
                             return extract_bucket_phased(
                                 sp, s_np, w_np, cfg.relinvovl,
                                 gain=float(l), use_mxu=cfg.use_mxu_fft,
                                 keep_from=l - bucket.out_len,
-                            ), None
+                            )
                         y = extract_bucket(
                             sp, s_np, w_np, gain=float(l),
                             use_mxu=cfg.use_mxu_fft,
@@ -357,17 +306,15 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
                         ) % cfg.relinvovl
                         return apply_phase_pairs(
                             y, phase_idx, cfg.relinvovl
-                        ), None
+                        )
 
                     return br
 
-                y, p = self._rank_call(
+                y = self._rank_call(
                     cidx,
                     [tp_branch(s, w) for s, w in zip(starts_r, wins_r)],
                     spec, t,
                 )
-                if p is not None:
-                    powers_fused = p  # [b_local, Cm]
                 # [C_loc, b_local, out_len, 2]
                 c_loc = y.shape[0]
                 mats.append(y.reshape(c_loc, b_local * bucket.out_len, 2))
@@ -409,19 +356,12 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
             out["fused"] = fused_out
 
         sq_local = (
-            jnp.abs(spec) ** 2
-            if (self.power_bank or self.segments) and powers_fused is None
+            jnp.abs(spec) ** 2 if (self.power_bank or self.segments)
             else None
         )
         if self.power_bank:
             pa = self.power_bank
-            if powers_fused is not None:
-                lo, hi = self._measure_cols["powact"]
-                powers_local = jnp.maximum(
-                    powers_fused[:, lo:hi], _PA_FLOAT_MIN
-                )
-            else:
-                powers_local = pa.measure(spec, sq_local)  # [b_local, C]
+            powers_local = pa.measure(spec, sq_local)  # [b_local, C]
             powers = _gather_time(powers_local, n_time)  # [B, C]
             ext = {}
             for bucket, starts_r, wins_r in self._pa_unfused:
@@ -453,27 +393,18 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
         # zeros, and one psum per leaf broadcasts the (tiny) flags +
         # slot-table state. Per-rank scan work drops to
         # ceil(segments/n_chan), directly shrinking the replicated-logic
-        # Amdahl term of the scaling model (PERFORMANCE.md). Gated on
+        # Amdahl term of the multi-device step. Gated on
         # >= 2 segments: with one segment the cond+psum buys nothing.
         shard_scans = self.n_chan > 1 and len(self.segments) >= 2
         # Candidate detection is per-block independent and slot-table-free
         # (SegmentDetector._packed_candidates), so each time shard detects
         # on ITS OWN local powers and only the tiny [B, 7K] candidate rows
         # are all-gathered — the scans' replicated work shrinks to the
-        # lifecycle kernel itself, directly cutting the Amdahl L term of
-        # the scaling model (PERFORMANCE.md).
+        # lifecycle kernel itself.
         pa_state = pa_flags = None  # set by the fused scan or separately
         seg_pl, seg_pk = [], []  # per-segment local powers / gathered cands
         for i, sd in enumerate(self.segments):
-            if powers_fused is not None:
-                lo, hi = self._measure_cols[f"seg{i}"]
-                power_local = powers_fused[:, lo:hi]
-                if sd.vcm:
-                    power_local = power_local * jnp.float32(
-                        1.0 / sd.geometry.decimation
-                    )
-            else:
-                power_local = sd.measure(spec, sq_local)  # [b_local, nc]
+            power_local = sd.measure(spec, sq_local)  # [b_local, nc]
             seg_pl.append(power_local)
             packed_local, _ = sd._packed_candidates(power_local)
             seg_pk.append(_gather_time(packed_local, n_time))  # [B, 7K]
@@ -524,9 +455,7 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
                 for j, res in zip(idxs, grp):
                     seg_scans[j] = res
         elif self.power_bank and self.segments:
-            # unsharded scans + a power bank: the powact automaton rides
-            # the same fused kernel invocation (scan_slots_multi powact=,
-            # ablate28: the scan stage is launch/glue dominated)
+            # unsharded scans + a power bank (scan_slots_multi powact=)
             seg_scans, (pa_state, pa_flags) = scan_slots_multi(
                 self.segments, [None] * len(self.segments),
                 [carry[f"seg{i}"] for i in range(len(self.segments))],
@@ -627,7 +556,7 @@ class ShardedChannelizer(FrequencyDomainChannelizer):
         )
         # channel tables are NOT shard_map operands: each chan rank's
         # tables are static numpy constants baked into its lax.switch
-        # branch (_rank_call), so the fused Pallas extraction engages
+        # branch (_rank_call), so the windows fold into the DFT matrices
         in_specs = (carry_spec, in_spec, P())
 
         out = {}

@@ -51,7 +51,7 @@ def _phase_rot_table(relinvovl: int) -> np.ndarray:
 # live, n_blocks, finished, id_len, id bytes, then per block len+samples).
 # Checkpoints must restore across emitter BACKENDS — a capture saved on a
 # machine with the native build must resume on one without it and vice
-# versa (VERDICT r3 item 5) — so the native emitters' get_state/set_state
+# versa — so the native emitters' get_state/set_state
 # speak the SAME structured schema as the Python emitters, converting
 # through these two helpers. Legacy {"native_blob": ...} checkpoints load
 # into either backend too.

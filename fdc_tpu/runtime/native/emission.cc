@@ -20,6 +20,7 @@
 #include <cstring>
 #include <deque>
 #include <string>
+#include <utility>
 #include <vector>
 
 namespace {

@@ -1,6 +1,6 @@
 // Native streaming runtime: SPSC sample ring buffer + background file source.
 //
-// The TPU-native equivalent of the runtime layer the reference gets from GNU
+// The equivalent here of the runtime layer the reference gets from GNU
 // Radio: lock-free ring buffers between the sample source and the batched
 // device step (reference runtime: gr::sync_block stream buffers, SURVEY.md
 // §1), and a double-buffered background reader as the data-loader.
@@ -27,6 +27,7 @@
 #include <cstdio>
 #include <cstring>
 #include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 

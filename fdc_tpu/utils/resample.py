@@ -3,10 +3,10 @@
 The reference emits each channel at its own fixed rate fs*width/blocksize
 (reference: python/FrequencyDomainChannelizer.py:218-231 — the decimation
 is the bin-slice width); downstream consumers usually want one common
-rate. This module provides a TPU-friendly polyphase rational resampler:
+rate. This module provides a polyphase rational resampler:
 the up/down structure is expressed as ONE `lax.conv_general_dilated`
 (input dilation = interpolation, window stride = decimation), which XLA
-lowers to MXU-friendly convolution kernels — no per-phase Python loops.
+lowers to one convolution kernel — no per-phase Python loops.
 
 No reference analog (gr-FDC leaves resampling to downstream GNU Radio
 blocks); the filter is a Kaiser-windowed sinc like GNU Radio's
@@ -85,6 +85,8 @@ def rational_resample(x, up: int, down: int, taps_per_phase: int = 16,
             padding=((pad, pad),),
             lhs_dilation=(up,),
             dimension_numbers=("NCH", "OIH", "NCH"),
+            # float32 taps: DEFAULT would round to TF32 on the GPU
+            precision=jax.lax.Precision.HIGHEST,
         )
         return out[:, 0, :]
 

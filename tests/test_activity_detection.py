@@ -126,7 +126,7 @@ def test_extracted_burst_snr():
 
 @pytest.mark.parametrize("native_emission", [False, True])
 def test_vcm_matches_golden(native_emission):
-    """vcm-SPECIFIC sequential golden replay (VERDICT r1 item 7): the
+    """vcm-SPECIFIC sequential golden replay: the
     multi-segment runner must reproduce the reference vcm block's event
     stream including its deltas vs SegmentDetection — 1/dec power
     normalization, FLT_MIN zero-ratio handling, blockcount-from-1, and

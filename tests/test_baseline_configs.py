@@ -2,7 +2,7 @@
 
 Each config from BASELINE.json ("configs") gets a CPU-sized functional
 test: same structure, smaller sample counts. These are the judged
-scenarios; the full-size versions run on TPU via bench.py / examples.
+scenarios; the full-size versions run on the GPU via bench.py / examples.
 """
 
 import numpy as np

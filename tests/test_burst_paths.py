@@ -155,7 +155,7 @@ def test_segment_detection_crowded_band_matches_golden():
     simultaneous rising edges than any small strongest-K cap. With
     max_candidates=0 (exact mode, the default) every edge must be considered
     and the event stream must match the golden reference replay
-    (VERDICT r1 item 5; reference: lib/SegmentDetection_impl.cc:208-243)."""
+    (reference: lib/SegmentDetection_impl.cc:208-243)."""
     n, r = 1024, 4
     inplen = n - n // r
     n_blocks = 24

@@ -93,7 +93,7 @@ def test_forward_spectrum_matches_golden():
 
 @pytest.mark.parametrize("n", [256, 1024, 4096])
 def test_forward_spectrum_mxu_matches_fft_path(n):
-    """Four-step MXU formulation == FFT lowering (the use_mxu_fft front-end,
+    """Four-step matmul formulation == FFT lowering (the use_mxu_fft front-end,
     reference front-end: python/FrequencyDomainChannelizer.py:206,214-216)."""
     from fdc_tpu.ops.fft import forward_spectrum_mxu
 
@@ -290,7 +290,7 @@ def test_waterfall_handles_nonfinite_power():
 @pytest.mark.parametrize("use_mxu", [True, False])
 def test_extract_pairs_layout_bit_identical(use_mxu):
     """pairs=True ships the float-pair host layout with values identical to
-    complexify + c2f (MXU path: interleaved matrix columns, same dot
+    complexify + c2f (matmul path: interleaved matrix columns, same dot
     products; FFT path: literal c2f)."""
     from fdc_tpu.ops.extract import (
         apply_phase, apply_phase_pairs, extract_bucket, extract_dynamic,

@@ -1,4 +1,4 @@
-"""Pallas slot-lifecycle kernel == lax.scan reference, on random streams."""
+"""Lifecycle and burst kernels (interpret mode) == lax.scan reference."""
 
 import numpy as np
 import pytest
@@ -257,22 +257,25 @@ def test_powact_pallas_matches_scan(seed):
 
 
 @pytest.mark.parametrize("seed", list(range(8)))
-def test_powact_assoc_matches_scan(seed):
-    """Batched associative-scan automaton == lax.scan, bit-exact.
+def test_powact_pallas_chunked_matches_scan(seed):
+    """The kernel's closed-form quiet chunks == lax.scan, bit-exact.
 
-    Random powers straddling the threshold churn rise/fall/phase; random
-    carried state exercises bursts continuing across the batch boundary
-    and the pre-first-rise phase branch."""
+    Powers hold still for whole 32-block chunks (no ratio edge, so the
+    chunk is closed form) between chunks of random steps straddling the
+    threshold; random carried state exercises bursts continuing through
+    the quiet chunks."""
     rng = np.random.default_rng(seed)
     chans = [(0.2, 0.03), (0.45, 0.05), (0.7, 0.02), (0.85, 0.04)]
     pa_scan = PowerActivationBank(1024, 4, chans, 10.0, "scan")
-    pa_assoc = PowerActivationBank(1024, 4, chans, 10.0, "assoc")
+    pa_pal = PowerActivationBank(1024, 4, chans, 10.0, "pallas_interpret")
 
     c = pa_scan.num_channels
-    nb = 48
-    powers = jnp.asarray(
-        np.exp(rng.normal(0, 2.0, (nb, c))).astype(np.float32)
-    )
+    nb = 128
+    p = np.exp(rng.normal(0, 2.0, (nb, c))).astype(np.float32)
+    for chunk in rng.choice(nb // 32, size=2, replace=False):
+        lo = chunk * 32
+        p[lo:lo + 32] = p[max(lo - 1, 0)]  # quiet: equal to the block before
+    powers = jnp.asarray(p)
     state = {
         "active": jnp.asarray(rng.random(c) < 0.5),
         "lastpower": jnp.asarray(
@@ -282,7 +285,7 @@ def test_powact_assoc_matches_scan(seed):
     }
 
     ns_a, fl_a = jax.jit(pa_scan.scan_flags)(powers, state)
-    ns_b, fl_b = jax.jit(pa_assoc.scan_flags)(powers, state)
+    ns_b, fl_b = pa_pal.scan_flags(powers, state)
     for k in ns_a:
         np.testing.assert_array_equal(
             np.asarray(ns_a[k]), np.asarray(ns_b[k]), err_msg=f"state[{k}]"
@@ -556,7 +559,7 @@ def test_scan_slots_multi_powact_cpu_fallback():
 
 
 # ---------------------------------------------------------------------------
-# refresh-only closed-form chunks (event-driven fast path)
+# dwell patterns around the retirement boundary
 # ---------------------------------------------------------------------------
 
 
@@ -579,10 +582,9 @@ def _carrier_power(sd, nb, pattern, cell=6, width=3, level=2.0):
     (1, 1, 1, 1, 0, 0, 0, 0),  # dwell + silence crossing chunk state
 ])
 def test_refresh_chunk_parity(delay, pattern):
-    """Deterministic dwell patterns around the refresh-only closed-form
-    chunk's eligibility boundaries (gap == delay keeps the slot, gap >
-    delay must fall back to the per-block walk and retire), bit-exact
-    vs the lax.scan reference over two 32-chunks + a carried step."""
+    """Deterministic dwell patterns around the retirement boundary (gap
+    == delay keeps the slot, gap > delay retires), bit-exact vs the
+    lax.scan reference over two 32-block chunks + a carried step."""
     sd_scan = make_detector_at("scan", band=(0.05, 0.5), delay=delay)
     sd_pal = make_detector_at("pallas_interpret", band=(0.05, 0.5),
                               delay=delay)
@@ -699,7 +701,7 @@ def test_accepted_candidate_bound(seed):
 def test_exact_mode_pallas_matches_scan(seed):
     """max_candidates=0 (exact all-edges, the config default): Pallas
     kernel == lax.scan reference across churny multi-carrier streams,
-    with the compacted pack + tier dispatch engaged (k_detect=n_cells-1,
+    with the compacted pack (k_detect=n_cells-1,
     k_pack=(n_cells-1)//2)."""
     rng = np.random.default_rng(300 + seed)
     sd_scan = make_detector_at("scan", band=(0.05, 0.6),
@@ -731,8 +733,8 @@ def test_exact_mode_pallas_matches_scan(seed):
 @pytest.mark.parametrize("with_pa", [False, True])
 def test_batch_idle_fast_path_matches_scan(with_pa):
     """A fully idle batch (no candidates, no live slots, no powact
-    edges) takes the kernel-skipping cond branch — outputs must equal
-    the lax.scan reference exactly, including resting phases."""
+    edges) takes the closed-form chunk in every chunk — outputs must
+    equal the lax.scan reference exactly, including resting phases."""
     rng = np.random.default_rng(77)
     sd_scan = make_detector("scan")
     sd_pal = make_detector("pallas_interpret")
@@ -759,8 +761,8 @@ def test_batch_idle_fast_path_matches_scan(with_pa):
             )
         return
 
-    # fused powact riding the idle cond: quiet powers, idle bank state
-    from fdc_tpu.ops.lifecycle_pallas import slot_lifecycle_multi
+    # burst kernel beside the idle lifecycle: quiet powers, idle bank state
+    from fdc_tpu.ops.lifecycle_pallas import powact_flags, slot_lifecycle_multi
 
     packed, _ = sd_pal._packed_candidates(power)
     c = 3
@@ -770,16 +772,14 @@ def test_batch_idle_fast_path_matches_scan(with_pa):
         "phase": jnp.asarray([1, 2, 3], jnp.int32),
     }
     pows = jnp.full((64, c), 1e-5, jnp.float32)
-    (res,), (pa_new, pa_flags) = slot_lifecycle_multi(
+    (res,) = slot_lifecycle_multi(
         (packed,), (state,),
         n_cands=(sd_pal.k_pack,), rs=(4,), delays=(1,),
         interpret=True,
-        powact={
-            "powers": pows, "lastpower": pa_state["lastpower"],
-            "active": pa_state["active"], "phase": pa_state["phase"],
-            "delta": jnp.asarray([1, 2, 3], jnp.int32),
-        },
-        pa_r=4, pa_thresh=4.0,
+    )
+    pa_new, pa_flags = powact_flags(
+        pows, pa_state, jnp.asarray([1, 2, 3], jnp.int32), r=4,
+        thresh=4.0, interpret=True,
     )
     ns_b, fl_b = res
     assert not np.asarray(fl_b[0]).any()  # no activations
@@ -794,16 +794,16 @@ def test_batch_idle_fast_path_matches_scan(with_pa):
 
 
 # ---------------------------------------------------------------------------
-# single-event chunk closed form (round 4)
+# chunks with a single candidate-bearing block
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("evt", [0, 1, 15, 30, 31])
 @pytest.mark.parametrize("occupancy", [0.0, 0.5])
 def test_single_event_chunk_matches_scan(evt, occupancy):
-    """A chunk with exactly ONE candidate-bearing block takes the
-    age/body/age closed form — bit-exact vs the scan reference at every
-    event position, with live slots entering at assorted ages (retiring
+    """A chunk with exactly ONE candidate-bearing block (the full body on
+    that block, the aging-only body on the others) — bit-exact vs the
+    scan reference at every event position, with live slots entering at assorted ages (retiring
     before, at, and after the event block)."""
     rng = np.random.default_rng(400 + evt)
     sd_scan = make_detector_at("scan", band=(0.05, 0.5), delay=2)
@@ -873,30 +873,26 @@ def test_single_event_sparse_fuzz(seed):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_super_chunk_skip_matches_scan(seed):
-    """Batches long enough to engage the hierarchical SUPER-chunk skip
-    (n_chunks >= 8): quiet super-regions take one closed-form iteration;
-    work appearing in different super-regions dispatches correctly —
-    bit-exact vs the scan reference, with live slots aging across
-    super boundaries."""
-    from fdc_tpu.ops.lifecycle_pallas import _SUPER
-
+    """Long batches (8 chunks): quiet stretches of several chunks take
+    the closed form chunk by chunk, and work appearing anywhere
+    dispatches correctly — bit-exact vs the scan reference, with live
+    slots aging across many chunk boundaries."""
     rng = np.random.default_rng(600 + seed)
     delay = int(rng.integers(0, 4))
     sd_scan = make_detector_at("scan", band=(0.05, 0.5), delay=delay)
     sd_pal = make_detector_at("pallas_interpret", band=(0.05, 0.5),
                               delay=delay)
     nc = sd_scan.geometry.n_cells
-    nb = 256  # 8 chunks of 32 -> 2 super-regions of _SUPER
-    assert (nb // 32) >= 2 * _SUPER
+    nb = 256  # 8 chunks of 32
     p = np.full((nb, nc), 1e-6, np.float32)
-    # seed 0: one isolated event early (second super-region all quiet);
+    # seed 0: one isolated event early (the last seven chunks quiet);
     # others: sparse events across both regions + a dwelling carrier
     p[7, 5:8] += 2.0
     if seed:
         for b in rng.choice(nb, size=4, replace=False):
             cell = int(rng.integers(2, nc - 8))
             p[b, cell:cell + 2] += 1.5
-        p[140:200, 20:22] += 2.0  # dwell crossing a super boundary
+        p[140:200, 20:22] += 2.0  # dwell crossing chunk boundaries
     power = jnp.asarray(p)
     st_a = sd_scan.init_state()
     st_b = sd_pal.init_state()

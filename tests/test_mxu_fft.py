@@ -1,4 +1,4 @@
-"""MXU matmul-DFT subband transforms == FFT path (use_mxu_fft knob)."""
+"""Matmul-DFT subband transforms == FFT path (use_mxu_fft knob)."""
 
 import numpy as np
 import pytest
@@ -32,7 +32,7 @@ def test_mxu_dft_matches_fft_ops():
 
 def test_use_mxu_fft_end_to_end():
     """The knob flips every subband transform (throughput, burst bank,
-    detection slots) onto the MXU matmul path with equal results."""
+    detection slots) onto the matmul path with equal results."""
     def build(use_mxu):
         return FrequencyDomainChannelizer(
             ChannelizerConfig(

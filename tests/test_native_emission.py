@@ -289,7 +289,7 @@ def test_checkpoint_cross_emitter_backend(tmp_path, save_native,
                                           load_native):
     """A checkpoint written with one emitter backend restores into the
     OTHER, with post-resume events identical to the uninterrupted run
-    (VERDICT r3 item 5): the native engines' get_state/set_state speak
+    : the native engines' get_state/set_state speak
     the Python emitters' structured schema."""
     from fdc_tpu.runtime.checkpoint import load_checkpoint, save_checkpoint
 

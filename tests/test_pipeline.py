@@ -16,7 +16,7 @@ from fdc_tpu.config import ChannelizerConfig
 from fdc_tpu.models.channelizer import FrequencyDomainChannelizer
 from fdc_tpu.parallel.pipeline import PipelineChannelizer
 
-from tests.test_parallel import (
+from test_parallel import (
     assert_events_match,
     config,
     make_signal,
